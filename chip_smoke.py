@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (isac_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases (each prints its own lines and raises on failure, so any failed phase
+gives a non-zero exit code and no final result line):
+  1. the card's name and power limit (nvidia-smi), and the build of every
+     CUDA kernel of the main path from the sources in the checkout;
+  2. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it and at odd shapes (BG2 with punctured
+     columns, a ragged lifting size): posteriors torch.equal, hard bits and
+     parity flags equal; kernel and plain-version times;
+  3. the batched PDSCH link step at 51 PRB / 4 links / MCS 19 / 2 layers on
+     the card, with the kernels and with the plain versions, and on the CPU
+     (the plain versions that tests/test_torch_link.py holds against the JAX
+     reference): crc_ok and tb equal, sinr_db within 1e-3 dB, decoded TBs equal
+     to the transmitted ones;
+  4. the main path at full width — bench_pdsch's 273 PRB, 4 links, MCS 19,
+     2 layers, 16 tx / 2 rx — over distinct TB/noise per step, timed with
+     CUDA events; prints pdsch_slot_ms, pdsch_info_mbps, n_ok and the kernel
+     launch count of that run, which must be > 0.
+Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
+{"ok": true, "device": {...}}.
+
+It needs one CUDA card. It exits non-zero, printing no result, when
+torch.cuda.is_available() is false or when the package is not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, at the 700 W limit):
+# HBM3 bandwidth and float32 outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOP_S = 67e12
+# float ops per edge, lane and iteration of the layered min-sum update:
+# t = post - msg, |t|, min1 compare, min2 update, sign select, sign product,
+# (norm*sprod)*sgn, *mag, t + new
+LDPC_OPS_PER_EDGE = 10
+
+SLICE_SINR_ATOL_DB = 1e-3
+
+
+def _smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_cuda(fn, inputs, reps):
+    """Mean ms per call over `reps` calls cycling through distinct inputs,
+    after one warm-up call, timed with CUDA events."""
+    import torch
+
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _noisy_llrs(bg, z, n_cw, sigma, seed, dev, n_sets=1, puncture=True):
+    """Noisy BPSK LLRs of random codewords of the lifted code (numpy seed)."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.ops import ldpc
+
+    code = ldpc.lifted_code(bg, z)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_sets):
+        msg = torch.as_tensor(rng.integers(0, 2, (n_cw, code.k)).astype(np.int8), device=dev)
+        cw = ldpc.encode(code, msg).cpu().numpy().astype(np.float32)
+        y = (1.0 - 2.0 * cw) + sigma * rng.standard_normal(cw.shape)
+        llr = (2.0 * y / sigma**2).astype(np.float32)
+        if puncture:
+            llr[:, : 2 * z] = 0.0
+        out.append(torch.as_tensor(llr, device=dev))
+    return out
+
+
+def phase_kernels(dev):
+    """Phase 2: the layered LDPC kernel against its plain version."""
+    import torch
+
+    from isac_tpu_torch.ops import ldpc
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered, layered_posterior
+
+    cases = [  # (bg, z, codewords, iterations, sigma)
+        (1, 384, 116, 6, 0.9),  # the 273-PRB main path: C=29 x 4 links
+        (2, 64, 4, 4, 0.8),  # BG2 with punctured columns, as tests/test_ldpc.py
+        (2, 52, 8, 6, 0.85),  # ragged lifting size (Z not a multiple of 32)
+        (1, 160, 12, 6, 0.9),
+    ]
+    max_err = 0.0
+    main = None
+    for bg, z, n_cw, n_iter, sigma in cases:
+        llrs = _noisy_llrs(bg, z, n_cw, sigma, seed=bg * 1000 + z, dev=dev, n_sets=4)
+        pk = layered_posterior(llrs[0], bg, z, n_iter, impl="cuda")
+        pt = layered_posterior(llrs[0], bg, z, n_iter, impl="torch")
+        torch.cuda.synchronize()
+        err = float((pk - pt).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(pk, pt):
+            raise AssertionError(f"ldpc_layered BG{bg} Z={z}: posterior differs, max |err| {err}")
+        hk, ok_k = decode_layered(llrs[0], bg, z, n_iter, impl="cuda")
+        ht, ok_t = decode_layered(llrs[0], bg, z, n_iter, impl="torch")
+        if not (torch.equal(hk, ht) and torch.equal(ok_k, ok_t)):
+            raise AssertionError(f"ldpc_layered BG{bg} Z={z}: hard bits or parity flags differ")
+        line = (f"kernel ldpc_layered BG{bg} Z={z} x{n_cw} it{n_iter}: posterior equal, "
+                f"parity ok {int(ok_k.sum())}/{n_cw}")
+        if (bg, z, n_cw) == (1, 384, 116):
+            ms = _time_cuda(lambda x: layered_posterior(x, bg, z, n_iter, impl="cuda"), llrs, 20)
+            plain_ms = _time_cuda(lambda x: layered_posterior(x, bg, z, n_iter, impl="torch"),
+                                  llrs, 3)
+            code = ldpc.lifted_code(bg, z)
+            e = int(code.rows.shape[0])
+            io_bytes = 2 * n_cw * code.n_full * 4  # llr read once, posterior written once
+            ops = n_cw * n_iter * e * z * LDPC_OPS_PER_EDGE
+            bytes_ms = io_bytes / PEAK_BYTES_S * 1e3
+            ops_ms = ops / PEAK_F32_FLOP_S * 1e3
+            msg_bytes = n_cw * n_iter * 2 * e * z * 4  # edge messages, read + write
+            main = {
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "msg_traffic_bound_ms": msg_bytes / PEAK_BYTES_S * 1e3,
+            }
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms"
+        print(line, flush=True)
+    return main, max_err
+
+
+def phase_slice_parity(dev):
+    """Phase 3: link step with kernels vs plain versions, on the card and CPU."""
+    import torch
+
+    from isac_tpu_torch.example import example_link_batch
+    from isac_tpu_torch.parallel.links import make_link_step
+
+    g, args, tbs = example_link_batch(n_prb=51, n_links=4, mcs=19, n_layers=2, device=dev)
+    outs = {
+        "cuda": make_link_step(g, device=dev)[0](*args),
+        "cuda-plain": make_link_step(g, device=dev, impl="torch")[0](*args),
+        "cpu-plain": make_link_step(g, device="cpu")[0](*(a.cpu() for a in args)),
+    }
+    ref = {k: v.cpu() for k, v in outs["cuda"].items()}
+    for name in ("cuda-plain", "cpu-plain"):
+        o = {k: v.cpu() for k, v in outs[name].items()}
+        if not (torch.equal(o["crc_ok"], ref["crc_ok"]) and torch.equal(o["tb"], ref["tb"])):
+            raise AssertionError(f"slice parity: crc_ok/tb differ between cuda and {name}")
+        d = float((o["sinr_db"] - ref["sinr_db"]).abs().max())
+        if not d <= SLICE_SINR_ATOL_DB:
+            raise AssertionError(f"slice parity: sinr_db differs by {d} dB vs {name}")
+        print(f"slice 51 PRB x4 links: cuda vs {name}: crc_ok/tb equal, "
+              f"max |d sinr_db| {d:.3g} dB", flush=True)
+    ok = ref["crc_ok"]
+    if not torch.equal(ref["tb"][ok], args[0].cpu()[ok]):
+        raise AssertionError("slice: a CRC-passing TB differs from the transmitted one")
+    if not (ref["tb"].shape == (4, tbs) and torch.isfinite(ref["sinr_db"]).all() and ok.all()):
+        raise AssertionError(f"slice: unexpected output {ref['crc_ok']} {ref['sinr_db']}")
+    print(f"slice 51 PRB: crc_ok {ok.tolist()} sinr_db {ref['sinr_db'].tolist()}", flush=True)
+
+
+def phase_main_path(dev, n_steps=8):
+    """Phase 4: the link step at bench_pdsch's full width."""
+    import torch
+
+    from isac_tpu_torch.example import example_link_batch
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+    from isac_tpu_torch.parallel.links import make_link_step
+
+    n_prb, n_links = 273, 4
+    t0 = time.perf_counter()
+    g, (tb, w, h, noise), tbs = example_link_batch(n_prb=n_prb, n_links=n_links, mcs=19,
+                                                   n_layers=2, device=dev)
+    step, _ = make_link_step(g, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    tbs_in = [torch.randint(0, 2, tb.shape, generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(n_steps)]
+    noises = [torch.complex(torch.randn(noise.shape, generator=gen, device=dev),
+                            torch.randn(noise.shape, generator=gen, device=dev)) * 0.5**0.5
+              for _ in range(n_steps)]
+    step(tbs_in[0], w, h, noises[0])  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    decode_layered_cuda.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    outs = [step(tbs_in[i], w, h, noises[i]) for i in range(n_steps)]
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    launches = decode_layered_cuda.launches
+    slot_ms = start.elapsed_time(end) / n_steps
+    n_ok = 0
+    for i, o in enumerate(outs):
+        ok = o["crc_ok"]
+        n_ok += int(ok.sum())
+        if not torch.equal(o["tb"][ok], tbs_in[i][ok]):
+            raise AssertionError(f"main path step {i}: a CRC-passing TB differs from the sent one")
+        if not (o["tb"].shape == (n_links, tbs) and torch.isfinite(o["sinr_db"]).all()):
+            raise AssertionError(f"main path step {i}: bad output shapes or values")
+    if launches <= 0:
+        raise AssertionError("main path did not launch the ldpc_layered kernel")
+    if n_ok == 0:
+        raise AssertionError("main path: no transport block decoded")
+    res = {
+        "pdsch_slot_ms": slot_ms,
+        "pdsch_host_slot_ms": host_s / n_steps * 1e3,
+        "pdsch_info_mbps": tbs * n_links / (slot_ms / 1e3) / 1e6,
+        "n_ok": n_ok, "n_tb": n_steps * n_links, "tbs": tbs,
+        "ldpc_layered_launches": launches, "setup_s": setup_s,
+        "sinr_db_last": outs[-1]["sinr_db"].tolist(),
+    }
+    print("main path 273 PRB x4 links MCS19 2 layers: " + json.dumps(res), flush=True)
+    return res
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke test needs a "
+              "CUDA card", file=sys.stderr)
+        return 1
+    from isac_tpu_torch.utils import cuda_build
+    from isac_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(None)
+    smi = _smi_line()
+    print(f"device: {smi}", flush=True)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+
+    # phase 1: build the path's one kernel source
+    t0 = time.perf_counter()
+    cuda_build.build("ldpc_layered")
+    secs = time.perf_counter() - t0
+    log = cuda_build.BUILD_LOG.get("ldpc_layered", "(already built)")
+    info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    print(f"build ldpc_layered: {secs:.1f} s; " + " | ".join(info), flush=True)
+
+    # phase 2: kernels against their plain versions on the card
+    main_k, max_err = phase_kernels(dev)
+
+    # phase 3: slice parity
+    phase_slice_parity(dev)
+
+    # phase 4: the main path at full width (launch counts read from this run)
+    res = phase_main_path(dev)
+
+    print(json.dumps({"kernels": [{
+        "name": "ldpc_layered", "route": "cuda",
+        "source": "isac_tpu_torch/csrc/ldpc_layered.cu",
+        "replaces": "isac_tpu/ops/ldpc_layered.py:169",
+        "launches": res["ldpc_layered_launches"], "max_abs_err": max_err,
+        "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
+        "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
+        "library_ms": None,
+        "msg_traffic_bound_ms": main_k["msg_traffic_bound_ms"],
+    }]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
