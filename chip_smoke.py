@@ -9,8 +9,12 @@ gives a non-zero exit code and no final result line):
      CUDA kernel of the main path from the sources in the checkout;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it and at odd shapes (BG2 with punctured
-     columns, a ragged lifting size): posteriors torch.equal, hard bits and
-     parity flags equal; kernel and plain-version times;
+     columns, a ragged lifting size, one codeword, more codewords than two
+     CTAs per SM hold, lifting sizes below a warp, one sweep) and on inputs
+     that press on its compressed message state (few-level LLRs with ties
+     for the minimum, zeros of both signs): posteriors torch.equal, hard bits
+     and parity flags equal; kernel time (three readings) and plain-version
+     time;
   3. the batched PDSCH link step at 51 PRB / 4 links / MCS 19 / 2 layers on
      the card, with the kernels and with the plain versions, and on the CPU
      (the plain versions that tests/test_torch_link.py holds against the JAX
@@ -91,6 +95,32 @@ def _noisy_llrs(bg, z, n_cw, sigma, seed, dev, n_sets=1, puncture=True):
     return out
 
 
+def _pressed_llrs(kind, bg, z, n_cw, seed, dev):
+    """LLRs that press on the kernel's compressed message state: a few levels
+    only, so that several edges of a row tie for the minimum ("ties"), the
+    same with zeros of both signs sprinkled in ("negzeros"), or nothing but
+    zeros, half of the codewords -0.0 ("zeros")."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.ops import ldpc
+
+    rng = np.random.default_rng(seed)
+    shape = (n_cw, ldpc.lifted_code(bg, z).n_full)
+    if kind == "zeros":
+        llr = np.zeros(shape, np.float32)
+        llr[::2] = -0.0
+    else:
+        llr = (rng.integers(1, 4, shape) * rng.choice([-0.5, 0.5], shape)).astype(np.float32)
+        if kind == "negzeros":
+            llr[rng.random(shape) < 0.2] = -0.0
+            llr[rng.random(shape) < 0.1] = 0.0
+    return torch.as_tensor(llr, device=dev)
+
+
+MAIN_CASE = (1, 384, 116, 6)  # the 273-PRB main path: C=29 code blocks x 4 links
+
+
 def phase_kernels(dev):
     """Phase 2: the layered LDPC kernel against its plain version."""
     import torch
@@ -98,31 +128,49 @@ def phase_kernels(dev):
     from isac_tpu_torch.ops import ldpc
     from isac_tpu_torch.ops.ldpc_layered import decode_layered, layered_posterior
 
-    cases = [  # (bg, z, codewords, iterations, sigma)
-        (1, 384, 116, 6, 0.9),  # the 273-PRB main path: C=29 x 4 links
+    cases = [  # (bg, z, codewords, iterations, sigma or the kind of pressed input)
+        (*MAIN_CASE, 0.9),
         (2, 64, 4, 4, 0.8),  # BG2 with punctured columns, as tests/test_ldpc.py
         (2, 52, 8, 6, 0.85),  # ragged lifting size (Z not a multiple of 32)
         (1, 160, 12, 6, 0.9),
+        (1, 384, 1, 6, 0.9),
+        (1, 384, 300, 6, 0.9),  # more CTAs than two per SM hold
+        (1, 2, 40, 6, 0.9),  # less than one warp per codeword
+        (1, 20, 300, 6, 0.9),  # the same, several codewords per CTA
+        (2, 384, 20, 6, 0.85),
+        (*MAIN_CASE[:3], 1, 0.9),  # only the sweep that reads no message
+        (*MAIN_CASE, "ties"), (*MAIN_CASE, "negzeros"), (2, 52, 8, 6, "ties"),
+        (2, 64, 4, 4, "negzeros"), (1, 20, 300, 3, "zeros"),
+        # after one sweep the signs of zeros are still in the posterior
+        (*MAIN_CASE[:3], 1, "negzeros"), (2, 52, 8, 1, "negzeros"),
     ]
     max_err = 0.0
     main = None
     for bg, z, n_cw, n_iter, sigma in cases:
-        llrs = _noisy_llrs(bg, z, n_cw, sigma, seed=bg * 1000 + z, dev=dev, n_sets=4)
+        timed = (bg, z, n_cw, n_iter, sigma) == cases[0]
+        seed = bg * 1000 + z
+        if isinstance(sigma, str):
+            llrs = [_pressed_llrs(sigma, bg, z, n_cw, seed, dev)]
+        else:
+            llrs = _noisy_llrs(bg, z, n_cw, sigma, seed, dev, n_sets=4 if timed else 1)
         pk = layered_posterior(llrs[0], bg, z, n_iter, impl="cuda")
         pt = layered_posterior(llrs[0], bg, z, n_iter, impl="torch")
         torch.cuda.synchronize()
         err = float((pk - pt).abs().max())
         max_err = max(max_err, err)
-        if not torch.equal(pk, pt):
-            raise AssertionError(f"ldpc_layered BG{bg} Z={z}: posterior differs, max |err| {err}")
+        # bit patterns, so that -0.0 and +0.0 count as different
+        if not torch.equal(pk.view(torch.int32), pt.view(torch.int32)):
+            raise AssertionError(f"ldpc_layered BG{bg} Z={z} x{n_cw} it{n_iter} {sigma}: "
+                                 f"posterior differs, max |err| {err}")
         hk, ok_k = decode_layered(llrs[0], bg, z, n_iter, impl="cuda")
         ht, ok_t = decode_layered(llrs[0], bg, z, n_iter, impl="torch")
         if not (torch.equal(hk, ht) and torch.equal(ok_k, ok_t)):
             raise AssertionError(f"ldpc_layered BG{bg} Z={z}: hard bits or parity flags differ")
-        line = (f"kernel ldpc_layered BG{bg} Z={z} x{n_cw} it{n_iter}: posterior equal, "
-                f"parity ok {int(ok_k.sum())}/{n_cw}")
-        if (bg, z, n_cw) == (1, 384, 116):
-            ms = _time_cuda(lambda x: layered_posterior(x, bg, z, n_iter, impl="cuda"), llrs, 20)
+        line = (f"kernel ldpc_layered BG{bg} Z={z} x{n_cw} it{n_iter} {sigma}: posterior "
+                f"bit-equal, parity ok {int(ok_k.sum())}/{n_cw}")
+        if timed:
+            readings = [_time_cuda(lambda x: layered_posterior(x, bg, z, n_iter, impl="cuda"),
+                                   llrs, 20) for _ in range(3)]
             plain_ms = _time_cuda(lambda x: layered_posterior(x, bg, z, n_iter, impl="torch"),
                                   llrs, 3)
             code = ldpc.lifted_code(bg, z)
@@ -131,14 +179,17 @@ def phase_kernels(dev):
             ops = n_cw * n_iter * e * z * LDPC_OPS_PER_EDGE
             bytes_ms = io_bytes / PEAK_BYTES_S * 1e3
             ops_ms = ops / PEAK_F32_FLOP_S * 1e3
-            msg_bytes = n_cw * n_iter * 2 * e * z * 4  # edge messages, read + write
+            # the compressed state: 3 words per (row, lane), written by every
+            # sweep but the last and read by every sweep but the first
+            state_bytes = n_cw * 2 * (n_iter - 1) * code.n_rows * z * 12
             main = {
-                "ms": ms, "plain_ms": plain_ms,
+                "ms": sorted(readings)[1], "ms_readings": readings, "plain_ms": plain_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "msg_traffic_bound_ms": msg_bytes / PEAK_BYTES_S * 1e3,
+                "msg_traffic_bound_ms": (io_bytes + state_bytes) / PEAK_BYTES_S * 1e3,
             }
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms"
+            line += ("; kernel " + " ".join(f"{r:.4f}" for r in readings)
+                     + f" ms (3 readings of 20 calls), plain {plain_ms:.3f} ms")
         print(line, flush=True)
     return main, max_err
 
@@ -271,7 +322,7 @@ def main() -> int:
         "launches": res["ldpc_layered_launches"], "max_abs_err": max_err,
         "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "ms_readings": main_k["ms_readings"],
         "msg_traffic_bound_ms": main_k["msg_traffic_bound_ms"],
     }]}), flush=True)
     print(smi, flush=True)

@@ -3,13 +3,18 @@ isac_tpu/ops/ldpc_layered.py).
 
 Two implementations with identical numerics (same row order, same
 min1/min2/argmin self-exclusion with the first index winning ties, same
-multiply order ``norm * sprod * sgn * mag``):
+multiply order ``norm * sprod * sgn * mag``). Both keep a row's
+check-to-variable messages compressed per (row, lane) as min1, min2 and one
+packed word (a sign bit per edge, the index of the minimum above them),
+rebuild a message from them with the multiply order it was made with (so the
+rebuilt float has the same bits), and neither read nor subtract a message in
+the first sweep, where all are zero:
 
 - ``_decode_layered_torch``: the plain version, a loop over rows with the
   reference's uniform padded gather plan (``_scan_plan``, the form of the
-  reference's ``_decode_layered_xla``). The CPU tests and the card-side
-  comparison in chip_smoke.py use it; on a CUDA tensor the main path never
-  takes it.
+  reference's ``_decode_layered_xla``, to which its posterior is bit-equal).
+  The CPU tests and the card-side comparison in chip_smoke.py use it; on a
+  CUDA tensor the main path never takes it.
 - ``decode_layered_cuda``: the hand-written Hopper kernel
   (csrc/ldpc_layered.cu, replacing the TPU kernel ``_pallas_decoder``),
   bit-equal in posterior to the plain version on the card.
@@ -74,6 +79,30 @@ def _scan_tensors(bg: int, z: int, device: torch.device):
             torch.as_tensor(mask[..., None], device=device))
 
 
+# The packed word of a (row, lane): bit d is set where edge d's sign is -1,
+# and the index of the row's minimum (5 bits) sits above the sign bits. The
+# kernel's SIGN_BITS is the same number; a row degree above it does not fit.
+_SIGN_BITS = 19
+
+
+def _pack_state(arg: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """arg [..., 1, z] (index of the minimum) and neg [..., D, z] bool
+    (edge d's sign is -1) -> packed int32 words [..., z]."""
+    d = neg.shape[-2]
+    if d > _SIGN_BITS:
+        raise ValueError(f"row degree {d} does not fit the packed word")
+    bit = (1 << torch.arange(d, dtype=torch.int32, device=neg.device)).view(d, 1)
+    return (neg * bit).sum(dim=-2, dtype=torch.int32) | (
+        arg.squeeze(-2).to(torch.int32) << _SIGN_BITS)
+
+
+def _unpack_state(word: torch.Tensor, d: int):
+    """Packed words [..., z] -> (arg [..., 1, z] int64, neg [..., d, z] bool)."""
+    word = word.unsqueeze(-2)
+    shift = torch.arange(d, dtype=torch.int32, device=word.device).view(d, 1)
+    return (word >> _SIGN_BITS).to(torch.int64), ((word >> shift) & 1).bool()
+
+
 def _decode_layered_torch(llr: torch.Tensor, bg: int, z: int, n_iter: int,
                           norm: float) -> torch.Tensor:
     """Posterior LLRs after n_iter layered sweeps. llr [B, n_cols, z] f32."""
@@ -82,22 +111,31 @@ def _decode_layered_torch(llr: torch.Tensor, bg: int, z: int, n_iter: int,
     b = llr.shape[0]
     lf = torch.cat([llr.reshape(b, code.n_cols * z).to(torch.float32),
                     llr.new_zeros((b, dmax * z), dtype=torch.float32)], dim=-1)
-    m = lf.new_zeros((b, code.n_rows, dmax, z))
+    m1s = lf.new_empty((b, code.n_rows, 1, z))
+    m2s = torch.empty_like(m1s)
+    words = torch.empty((b, code.n_rows, z), dtype=torch.int32, device=llr.device)
     d_iota = torch.arange(dmax, device=llr.device).view(1, dmax, 1)
     inf = torch.tensor(float("inf"), device=llr.device)
-    for _ in range(n_iter):
+
+    def messages(m1, m2, arg, neg, mask_r):
+        sprod = 1.0 - 2.0 * (neg.sum(dim=1, keepdim=True) % 2)
+        sgn = torch.where(neg, -1.0, 1.0)
+        return norm * sprod * sgn * torch.where(d_iota == arg, m2, m1) * mask_r
+
+    for it in range(n_iter):
         for r in range(code.n_rows):
             mask_r = mask[r]  # [D, 1]
-            t = lf[:, idx[r]].view(b, dmax, z) - m[:, r]
-            sgn = torch.where(t >= 0, 1.0, -1.0) * mask_r + (1.0 - mask_r)
+            t = lf[:, idx[r]].view(b, dmax, z)
+            if it > 0:
+                arg, neg = _unpack_state(words[:, r], dmax)
+                t = t - messages(m1s[:, r], m2s[:, r], arg, neg, mask_r)
+            neg = ~(t >= 0) & (mask_r > 0)
             mag = torch.where(mask_r > 0, torch.abs(t), inf)
             m1 = torch.amin(mag, dim=1, keepdim=True)
             arg = torch.argmin(mag, dim=1, keepdim=True)  # first minimum wins
             m2 = torch.amin(torch.where(d_iota == arg, inf, mag), dim=1, keepdim=True)
-            sprod = torch.prod(sgn, dim=1, keepdim=True)
-            new = norm * sprod * sgn * torch.where(d_iota == arg, m2, m1) * mask_r
-            lf[:, idx[r]] = (t + new).view(b, dmax * z)
-            m[:, r] = new
+            lf[:, idx[r]] = (t + messages(m1, m2, arg, neg, mask_r)).view(b, dmax * z)
+            m1s[:, r], m2s[:, r], words[:, r] = m1, m2, _pack_state(arg, neg)
     return lf[:, : code.n_cols * z].view(b, code.n_cols, z)
 
 
@@ -106,14 +144,41 @@ def _decode_layered_torch(llr: torch.Tensor, bg: int, z: int, n_iter: int,
 
 @lru_cache(maxsize=32)
 def _csr_plan(bg: int, z: int, device: torch.device):
-    """Row pointers and per-edge (col, shift), int32 in row order, on device,
-    and the largest row degree."""
+    """Row pointers [n_rows + 1] and the per-edge table [n_edges, 2], int32 in
+    row order, on device, and the largest row degree. The table holds, per
+    edge, the byte offset (col*z + shift)*4 of lane 0's posterior value and
+    z - shift, the first lane whose value lies z floats further back."""
     code, plan = _row_plan(bg, z)
     deg = [len(r) for r in plan]
     row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
-    cols = np.asarray([c for r in plan for _, c, _ in r], np.int32)
-    shifts = np.asarray([s for r in plan for _, _, s in r], np.int32)
-    return (*(torch.as_tensor(a, device=device) for a in (row_ptr, cols, shifts)), max(deg))
+    edges = np.asarray([((c * z + s) * 4, z - s) for r in plan for _, c, s in r], np.int32)
+    return (torch.as_tensor(row_ptr, device=device),
+            torch.as_tensor(edges, device=device).contiguous(), max(deg))
+
+
+# The kernel's CTA: at most this many threads, thread t serving lane t % z of
+# the CTA's codeword t // z.
+_MAX_THREADS = 384
+# Shared memory a block may have on Hopper, and the most it may take for two
+# blocks to share an SM (228 KB per SM, 1 KB reserved per block).
+_SMEM_MAX = 227 * 1024
+_SMEM_TWO_PER_SM = 113 * 1024
+
+
+def _smem_bytes(n_rows: int, n_cols: int, n_edges: int, z: int, cw_per_cta: int) -> int:
+    """The kernel's dynamic shared memory: the edge table and the row
+    pointers, padded to 16 bytes, and cw_per_cta posteriors (the layout at the
+    top of its kernel body)."""
+    return -(-(8 * n_edges + 4 * (n_rows + 1)) // 16) * 16 + 4 * cw_per_cta * n_cols * z
+
+
+def _cw_per_cta(b: int, n_rows: int, n_cols: int, n_edges: int, z: int, n_sm: int) -> int:
+    """Codewords per CTA: one while the batch has a CTA or fewer per SM (the
+    decode is a latency chain, so spread first); beyond that as many as keep a
+    CTA within its threads and two CTAs on an SM."""
+    by_threads = _MAX_THREADS // z
+    by_smem = (_SMEM_TWO_PER_SM - _smem_bytes(n_rows, n_cols, n_edges, z, 0)) // (4 * n_cols * z)
+    return max(1, min(-(-b // n_sm), by_threads, by_smem))
 
 
 def _kernel_fn():
@@ -121,7 +186,7 @@ def _kernel_fn():
 
     fn = cuda_build.load("ldpc_layered").ldpc_layered_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -138,17 +203,32 @@ def decode_layered_cuda(llr: torch.Tensor, bg: int, z: int, n_iter: int,
         raise ValueError("decode_layered_cuda needs contiguous float32 input")
     if llr.dim() != 3 or tuple(llr.shape[1:]) != (code.n_cols, z):
         raise ValueError(f"expected [B, {code.n_cols}, {z}], got {tuple(llr.shape)}")
-    out = torch.empty_like(llr)
+    if n_iter < 0:
+        raise ValueError(f"n_iter must not be negative, got {n_iter}")
     b = llr.shape[0]
-    if b == 0:
-        return out
-    row_ptr, cols, shifts, max_deg = _csr_plan(bg, z, llr.device)
-    msg = torch.zeros((b, cols.shape[0], z), dtype=torch.float32, device=llr.device)
+    if b == 0 or n_iter == 0:
+        return llr.clone()
+    row_ptr, edges, max_deg = _csr_plan(bg, z, llr.device)
+    n_edges = edges.shape[0]
+    if max_deg > _SIGN_BITS:
+        raise ValueError(f"row degree {max_deg} does not fit the kernel's packed word "
+                         f"({_SIGN_BITS} sign bits)")
+    if z > _MAX_THREADS or code.n_rows < 2:
+        raise ValueError(f"the kernel takes z <= {_MAX_THREADS} and at least 2 rows, "
+                         f"got z={z}, {code.n_rows} rows")
+    n_sm = torch.cuda.get_device_properties(llr.device).multi_processor_count
+    cw_per_cta = _cw_per_cta(b, code.n_rows, code.n_cols, n_edges, z, n_sm)
+    smem = _smem_bytes(code.n_rows, code.n_cols, n_edges, z, cw_per_cta)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"BG{bg} Z={z} needs {smem} bytes of shared memory per block, "
+                         f"above the card's {_SMEM_MAX}")
+    out = torch.empty_like(llr)
+    state = torch.empty((b, code.n_rows, 3, z), dtype=torch.int32, device=llr.device)
     fn = _kernel_fn()
     with torch.cuda.device(llr.device):
-        err = fn(llr.data_ptr(), out.data_ptr(), msg.data_ptr(), row_ptr.data_ptr(),
-                 cols.data_ptr(), shifts.data_ptr(), b, code.n_rows, code.n_cols,
-                 cols.shape[0], max_deg, z, n_iter, float(norm),
+        err = fn(llr.data_ptr(), out.data_ptr(), state.data_ptr(), row_ptr.data_ptr(),
+                 edges.data_ptr(), b, code.n_rows, code.n_cols, n_edges, max_deg, z,
+                 n_iter, cw_per_cta, float(norm),
                  torch.cuda.current_stream(llr.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ldpc_layered kernel launch failed: cudaError {err}")

@@ -19,6 +19,7 @@ from isac_tpu.ops.ldpc_layered import decode_layered as j_decode_layered
 from isac_tpu_torch.ops import crc as t_crc
 from isac_tpu_torch.ops import ldpc as t_ldpc
 from isac_tpu_torch.ops import transport as t_transport
+from isac_tpu_torch.ops import ldpc_layered as t_layered
 from isac_tpu_torch.ops.ldpc_layered import decode_layered as t_decode_layered
 from isac_tpu_torch.ops.ldpc_layered import layered_posterior
 
@@ -113,6 +114,148 @@ def test_layered_posterior_equals_reference(bg, z, n_iter):
     ht, okt = t_decode_layered(_t(llr), bg, z, n_iter=n_iter)
     np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+
+
+def _pressed_llr(kind, bg, z, seed):
+    """[3, n_full] LLRs that press on the compressed message state."""
+    code = j_ldpc.lifted_code(bg, z)
+    rng = np.random.default_rng(seed)
+    shape = (3, code.n_cols, z)
+    if kind == "zeros":
+        llr = np.zeros(shape, np.float32)
+        llr[1] = -0.0
+    elif kind in ("ties", "negzeros"):
+        # a few levels only, so several edges of a row share the minimum
+        llr = (rng.integers(1, 4, shape) * rng.choice([-0.5, 0.5], shape)).astype(np.float32)
+        if kind == "negzeros":
+            llr[rng.random(shape) < 0.2] = -0.0
+            llr[rng.random(shape) < 0.1] = 0.0
+    elif kind == "deg19_last":
+        # row 0 has degree 19: its last edge gets the smallest magnitude in
+        # every lane, and a negative sign (the top sign bit of the packed word)
+        llr = (rng.uniform(2.0, 6.0, shape) * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+        _, plan = t_layered._row_plan(bg, z)
+        assert len(plan[0]) == 19
+        llr[:, plan[0][-1][1]] = -rng.uniform(0.1, 0.5, (3, z)).astype(np.float32)
+    else:
+        raise ValueError(kind)
+    return llr.reshape(3, code.n_full)
+
+
+def _row0_mags(llr, bg, z):
+    """|t| of row 0 in the first sweep, [3, deg, z]: t is the LLR itself there."""
+    _, plan = t_layered._row_plan(bg, z)
+    lv = llr.reshape(3, -1, z)
+    i = np.arange(z)
+    return np.abs(np.stack([lv[:, c][:, (i + s) % z] for _, c, s in plan[0]], axis=1))
+
+
+def _assert_posterior_bits_equal(llr, bg, z, n_iter):
+    """Bit patterns, so that -0.0 and +0.0 count as different."""
+    n_cols = j_ldpc.lifted_code(bg, z).n_cols
+    want = np.asarray(_decode_layered_xla(jnp.asarray(llr.reshape(3, n_cols, z)), bg, z,
+                                          n_iter, 0.75))
+    got = layered_posterior(_t(llr), bg, z, n_iter, 0.75, impl="torch").numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# the (bg, z, n_iter) triples are those of test_layered_posterior_equals_reference
+# at its batch of 3, so the reference compiles nothing new here
+@pytest.mark.parametrize("kind,bg,z,n_iter", [
+    ("ties", 1, 384, 6), ("ties", 2, 64, 4), ("ties", 2, 52, 6), ("ties", 1, 20, 3),
+    ("zeros", 2, 52, 6), ("negzeros", 2, 64, 4), ("negzeros", 1, 20, 3),
+    ("deg19_last", 1, 384, 6), ("deg19_last", 1, 20, 3),
+])
+def test_layered_posterior_pressed_cases_equal_reference(kind, bg, z, n_iter):
+    """Inputs that the compressed message state could get wrong: ties for the
+    minimum (min2 then equals min1, so every edge must get the same magnitude
+    whichever tied index is kept), zeros of both signs, and the minimum at the
+    last edge of a degree-19 row with its sign bit set."""
+    llr = _pressed_llr(kind, bg, z, seed=z + n_iter)
+    mags = _row0_mags(llr, bg, z)
+    if kind == "ties":
+        assert ((mags == mags.min(axis=1, keepdims=True)).sum(axis=1) > 1).any()
+    if kind == "deg19_last":
+        assert (mags.argmin(axis=1) == 18).all()
+        assert (mags[:, 18:] < np.delete(mags, 18, axis=1).min(axis=1, keepdims=True)).all()
+    _assert_posterior_bits_equal(llr, bg, z, n_iter)
+
+
+@pytest.mark.parametrize("n_iter", [1, 2])
+@pytest.mark.parametrize("kind", ["noisy", "ties", "negzeros"])
+def test_layered_first_sweeps_equal_reference(kind, n_iter):
+    """n_iter=1 is only the sweep that reads no message; n_iter=2 adds the
+    first sweep that rebuilds them from the compressed state. After one sweep
+    the signs of zeros are still in the posterior (later sweeps wash them
+    out), so "negzeros" here is what tells -0.0 from +0.0 in the first sweep."""
+    bg, z = 2, 52
+    llr = _noisy_llr(bg, z, 3, 0.85, seed=7) if kind == "noisy" else _pressed_llr(kind, bg, z, 7)
+    _assert_posterior_bits_equal(llr, bg, z, n_iter)
+
+
+def test_layered_zero_sweeps_returns_a_copy():
+    llr = _t(_noisy_llr(2, 52, 3, 0.85, seed=7))
+    got = layered_posterior(llr, 2, 52, 0, impl="torch")
+    assert got.data_ptr() != llr.data_ptr()
+    np.testing.assert_array_equal(got.numpy().reshape(3, -1), llr.numpy())
+
+
+@pytest.mark.parametrize("deg", range(3, 20))
+def test_packed_state_round_trips(deg):
+    """The packed word gives back the minimum's index and every sign bit, for
+    every row degree of the two base graphs (3..19)."""
+    rng = np.random.default_rng(deg)
+    neg = rng.random((2, deg, 9)) < 0.5
+    arg = rng.integers(0, deg, (2, 1, 9))
+    neg[0, :, 0], neg[0, :, 1], neg[0, :, 2] = True, False, False
+    neg[0, deg - 1, 2] = True  # only the top sign bit
+    arg[0, 0, :3] = deg - 1
+    word = t_layered._pack_state(_t(arg), _t(neg))
+    assert word.dtype == torch.int32 and word.shape == (2, 9)
+    assert int(word[0, 2]) == (1 << (deg - 1)) | ((deg - 1) << 19)
+    arg2, neg2 = t_layered._unpack_state(word, deg)
+    np.testing.assert_array_equal(arg2.numpy(), arg)
+    np.testing.assert_array_equal(neg2.numpy(), neg)
+
+
+def test_packed_state_refuses_a_wider_row():
+    with pytest.raises(ValueError, match="packed word"):
+        t_layered._pack_state(torch.zeros(1, 1, 4, dtype=torch.int64),
+                              torch.zeros(1, 20, 4, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("bg,z", [(1, 384), (2, 52)])
+def test_csr_plan_matches_row_plan(bg, z):
+    """The kernel's tables: row pointers, and per edge in row order the byte
+    offset of (col, shift) and the first lane that wraps; the largest degree
+    fits the packed word."""
+    code, plan = t_layered._row_plan(bg, z)
+    row_ptr, edges, max_deg = t_layered._csr_plan(bg, z, torch.device("cpu"))
+    assert row_ptr.dtype == edges.dtype == torch.int32 and edges.is_contiguous()
+    assert row_ptr.tolist() == np.cumsum([0] + [len(r) for r in plan]).tolist()
+    assert edges.tolist() == [[(c * z + s) * 4, z - s] for r in plan for _, c, s in r]
+    assert max_deg == max(len(r) for r in plan) <= t_layered._SIGN_BITS
+    assert 0 <= int(edges[:, 0].min()) and int(edges[:, 0].max()) < code.n_cols * z * 4
+    assert 1 <= int(edges[:, 1].min()) and int(edges[:, 1].max()) <= z
+
+
+def test_kernel_launch_shape():
+    """Codewords per CTA and shared memory, as the wrapper hands them to the
+    kernel: one codeword per CTA until the batch outgrows the SMs, then as
+    many as the thread and shared-memory limits of two CTAs per SM allow."""
+    shape = t_layered._cw_per_cta
+    bg1 = (46, 68, 316)
+    assert shape(116, *bg1, 384, 132) == 1 and shape(300, *bg1, 384, 132) == 1
+    assert t_layered._smem_bytes(*bg1, 384, 1) == 2720 + 68 * 384 * 4  # tables 2716 -> 2720
+    assert t_layered._smem_bytes(*bg1, 384, 1) <= t_layered._SMEM_TWO_PER_SM
+    assert shape(8, 42, 52, 197, 52, 132) == 1
+    assert shape(1000, *bg1, 64, 132) == 6  # 6 * 64 = 384 threads
+    assert shape(1000, *bg1, 2, 132) == 8  # ceil(1000 / 132)
+    assert shape(100000, *bg1, 2, 132) == 192
+    for b, z in ((1000, 64), (100000, 2), (5000, 20)):
+        n = shape(b, *bg1, z, 132)
+        assert n * z <= t_layered._MAX_THREADS
+        assert t_layered._smem_bytes(*bg1, z, n) <= t_layered._SMEM_TWO_PER_SM
 
 
 def test_layered_decoder_equals_pallas_interpret():
