@@ -23,7 +23,19 @@ gives a non-zero exit code and no final result line):
   4. the main path at full width — bench_pdsch's 273 PRB, 4 links, MCS 19,
      2 layers, 16 tx / 2 rx — over distinct TB/noise per step, timed with
      CUDA events; prints pdsch_slot_ms, pdsch_info_mbps, n_ok and the kernel
-     launch count of that run, which must be > 0.
+     launch count of that run, which must be > 0;
+  5. the mono-static sensing chain (example_sensing / make_sensing_chain; it
+     reaches no hand-written kernel, its device work is PyTorch's own calls):
+     5a the chain at 51 PRB on the card against the same code on the CPU (the
+     code tests/test_torch_sensing.py holds against the JAX reference), same
+     grid and noise array: masks, bins and angles equal, RDM within 2e-5 of
+     max|.|; 5b the full width of the reference benchmark's sensing entry —
+     273 PRB, 16 antennas, 20 slots, 4096-point range IFFT, 256-point Doppler
+     FFT — 8 runs with distinct noise, timed with CUDA events and the host
+     clock, each of which must find exactly the detection the JAX package
+     finds on the same grid; per-stage times and peak memory; 5c the same
+     chain on the DL waveform of the port's own PDSCH transmit on the D slots
+     and the DL symbols of the S slots of DDDSU x 4; then the range/velocity MUSIC chain once at full width.
 Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 
@@ -282,6 +294,291 @@ def phase_main_path(dev, n_steps=8):
     return res
 
 
+# What the JAX package finds at the full-width sensing inputs (its CPU backend,
+# same grid; the noise is ~55 dB under the echo, so the bins do not depend on
+# the draw): one CFAR detection at range bin 107, Doppler bin 129, MUSIC azimuth
+# 18.0 deg (truth: 129.66 m, 7 m/s, 18.43 deg), no elevation from a ULA.
+SENSING_EXPECT = {"n_ifft": 4096, "n_fft": 256, "range_bin": 107, "doppler_bin": 129,
+                  "azimuth_deg": 18.0, "rngRMSE": 0.863, "velRMSE": 2.438, "aziRMSE": 0.435}
+SENSING_RDM_TOL = 2e-5  # of max|RDM|: float32 products and FFTs of two libraries
+
+
+def _sensing_gnb():
+    """The reference benchmark's gNB: defaults (3.5 GHz, 100 MHz at SCS 30 kHz =
+    273 PRB, 44 dBm, DDDSU) with the 8 x 2-pol ULA."""
+    from isac_tpu_torch.config import ULA, GNBParams
+
+    return GNBParams(antenna=ULA(n_v=8, polarizations=2))
+
+
+def _host_estimates(est):
+    return {k: v.cpu().numpy() for k, v in est.items() if k != "rdm"}
+
+
+def _same_masked(a, b):
+    """Equal arrays, NaN (masked-out entries) in the same places."""
+    import numpy as np
+
+    return a.shape == b.shape and bool(np.array_equal(a, b, equal_nan=a.dtype.kind == "f"))
+
+
+def phase_sensing_parity(dev):
+    """Phase 5a: the sensing chain at small size, card against CPU."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.config import ULA, GNBParams
+    from isac_tpu_torch.example import example_sensing
+
+    gnb = GNBParams(dl_bandwidth=20e6, ul_bandwidth=20e6, antenna=ULA(n_v=8, polarizations=2))
+    targets = (((120.0, 40.0, 1.5), (70.0, -60.0, 1.5)), (3.3, 1.0), (20.0, -25.0))
+    num_slots = 10
+    outs = {}
+    noise = None
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        chain, params, grids = example_sensing(num_slots=num_slots, seed=3, device=d, gnb=gnb,
+                                               targets=targets)
+        if noise is None:
+            n = int(gnb.carrier.ofdm.symbol_lengths_slots(num_slots).sum())
+            rng = np.random.default_rng(4)
+            noise = (np.sqrt(params.n0 / 2.0) * (rng.standard_normal((n, gnb.num_tx_ants))
+                     + 1j * rng.standard_normal((n, gnb.num_tx_ants)))).astype(np.complex64)
+        est = chain(grids, torch.as_tensor(noise, device=d))
+        outs[name] = (_host_estimates(est), est["rdm"].cpu())
+    (got, rdm_g), (want, rdm_c) = outs["cuda"], outs["cpu"]
+    for k in ("valid", "doa_valid", "rngEst", "velEst", "aziEst", "eleEst"):
+        if not _same_masked(got[k], want[k]):
+            raise AssertionError(f"sensing parity: {k} differs: card {got[k]} vs CPU {want[k]}")
+    err = float((rdm_g - rdm_c).abs().max() / rdm_c.abs().max())
+    if not err <= SENSING_RDM_TOL:
+        raise AssertionError(f"sensing parity: RDM differs by {err} of max|.|")
+    n_det = int(want["valid"].sum())
+    if n_det < 2:
+        raise AssertionError(f"sensing parity: {n_det} detections for two targets")
+    print(f"sensing 51 PRB x16 ants x{num_slots} slots, 2 targets: card vs CPU: masks, bins and "
+          f"angles equal ({n_det} detections, rngEst {want['rngEst'][:n_det].tolist()}, aziEst "
+          f"{want['aziEst'][:2].tolist()}), max |d RDM| {err:.3g} of max (tolerance "
+          f"{SENSING_RDM_TOL})", flush=True)
+
+
+def _check_full_width_estimate(est, params, what):
+    """The one detection SENSING_EXPECT states, or AssertionError."""
+    import numpy as np
+
+    from isac_tpu_torch.ops.sensing import get_rmse
+
+    e = _host_estimates(est)
+    exp = SENSING_EXPECT
+    n_det = int(e["valid"].sum())
+    if n_det != 1 or not e["valid"][0]:
+        raise AssertionError(f"{what}: {n_det} CFAR detections, expected one: {e['rngEst']}")
+    r_bin = int(round(float(e["rngEst"][0]) / params.r_res))
+    d_bin = int(round(float(e["velEst"][0]) / params.v_res + params.n_fft / 2))
+    az = float(e["aziEst"][0])
+    if (r_bin, d_bin, az) != (exp["range_bin"], exp["doppler_bin"], exp["azimuth_deg"]):
+        raise AssertionError(f"{what}: range bin {r_bin}, Doppler bin {d_bin}, azimuth {az}; "
+                             f"expected {exp['range_bin']}, {exp['doppler_bin']}, "
+                             f"{exp['azimuth_deg']}")
+    if not (np.isnan(e["eleEst"]).all() and np.isnan(e["aziEst"][1:]).all()):
+        raise AssertionError(f"{what}: eleEst {e['eleEst']} aziEst {e['aziEst']}")
+    rep = get_rmse(e, params)
+    if (rep["numMatched"], rep["numTargets"]) != (1, 1):
+        raise AssertionError(f"{what}: get_rmse matched {rep['numMatched']} of {rep['numTargets']}")
+    for k in ("rngRMSE", "velRMSE", "aziRMSE"):
+        if abs(rep[k] - exp[k]) > 1e-3:
+            raise AssertionError(f"{what}: {k} {rep[k]} expected {exp[k]}")
+    return e, rep
+
+
+def _sensing_stage_ms(chain_parts, grid, gen, reps=4):
+    """CUDA-event ms per stage of the chain, the stages called one by one."""
+    import torch
+
+    from isac_tpu_torch.ops.ofdm import ofdm_demodulate, ofdm_modulate
+    from isac_tpu_torch.ops.sensing import (apply_radar_channel, cfar_detect_map,
+                                            cfar_extract_detections, music_doa,
+                                            range_doppler_map, spatial_covariance)
+
+    params, cfg, info, n_sc, num_slots = chain_parts
+    names = ("ofdm_modulate", "echo", "ofdm_demodulate", "rdm", "cfar", "covariance_music")
+    total = dict.fromkeys(names, 0.0)
+    for rep in range(reps + 1):  # the first pass warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        wave = ofdm_modulate(grid, info).T
+        ev[1].record()
+        rx = apply_radar_channel(wave, params, gen)
+        ev[2].record()
+        rx_grid = ofdm_demodulate(rx.T, info, n_sc, num_slots)
+        ev[3].record()
+        rdm = range_doppler_map(rx_grid, grid, params.n_ifft, params.n_fft)
+        ev[4].record()
+        power = torch.abs(rdm) ** 2
+        det = cfar_detect_map(power, cfg).any(dim=0)
+        dets = cfar_extract_detections(power.amax(dim=0), det, cfg)
+        ev[5].record()
+        music_doa(spatial_covariance(rx_grid), params, num_detections=dets["valid"].sum())
+        ev[6].record()
+        torch.cuda.synchronize()
+        del wave, rx, rx_grid, rdm, power, det
+        if rep:
+            for i, name in enumerate(names):
+                total[name] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return total
+
+
+def phase_sensing_full(dev, n_runs=8):
+    """Phase 5b: the sensing chain at the reference benchmark's full width."""
+    import torch
+
+    from isac_tpu_torch.example import example_sensing
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+    from isac_tpu_torch.ops.sensing import make_cfar_config
+
+    num_slots = 20
+    gnb = _sensing_gnb()
+    carrier = gnb.carrier
+    t0 = time.perf_counter()
+    chain, params, grids = example_sensing(num_slots=num_slots, seed=0, device=dev, gnb=gnb)
+    exp = SENSING_EXPECT
+    if (params.n_ifft, params.n_fft) != (exp["n_ifft"], exp["n_fft"]):
+        raise AssertionError(f"sensing: n_ifft {params.n_ifft} n_fft {params.n_fft}")
+    if tuple(grids[0].shape) != (16, 280, 3276) or carrier.ofdm.nfft != 4096:
+        raise AssertionError(f"sensing: grid shape {tuple(grids[0].shape)}")
+    gens = []
+    for i in range(n_runs + 1):
+        g = torch.Generator(device=dev)
+        g.manual_seed(700 + i)
+        gens.append(g)
+    _check_full_width_estimate(chain(grids, gens[-1]), params, "sensing warm-up")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    decode_layered_cuda.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    ests = []
+    for i in range(n_runs):
+        est = chain(grids, gens[i])
+        del est["rdm"]  # 134 MB a run; the checks below read the estimates only
+        ests.append(est)
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    chain_ms = start.elapsed_time(end) / n_runs
+    for i, est in enumerate(ests):
+        e, rep = _check_full_width_estimate(est, params, f"sensing run {i}")
+    chain_parts = (params, make_cfar_config(params), carrier.ofdm, carrier.n_sc, num_slots)
+    stages = _sensing_stage_ms(chain_parts, grids[0], gens[0])
+    res = {
+        "sensing_chain_ms": chain_ms, "sensing_host_ms": host_s / n_runs * 1e3,
+        "rdm_per_s": 1e3 / chain_ms, "n_runs": n_runs,
+        "n_ifft": params.n_ifft, "n_fft": params.n_fft,
+        "range_bin": exp["range_bin"], "doppler_bin": exp["doppler_bin"],
+        "rngEst": float(e["rngEst"][0]), "velEst": float(e["velEst"][0]),
+        "aziEst": float(e["aziEst"][0]), "peak": float(e["peak"][0]),
+        "rngRMSE": rep["rngRMSE"], "velRMSE": rep["velRMSE"], "aziRMSE": rep["aziRMSE"],
+        "matched": rep["numMatched"], "targets": rep["numTargets"],
+        "peak_memory_mb": peak_mb, "resident_before_mb": base_mb, "setup_s": setup_s,
+        "ldpc_layered_launches_in_sensing": decode_layered_cuda.launches,
+    }
+    print("sensing 273 PRB x16 ants x20 slots (FFT + MUSIC DoA): " + json.dumps(res), flush=True)
+    print("sensing stage ms (CUDA events, stages called one by one, mean of 4): "
+          + json.dumps(stages), flush=True)
+    return params, grids
+
+
+def phase_sensing_isac(dev):
+    """Phase 5c: the chain on the DL waveform of the port's PDSCH transmit."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.ops.precoding import csirs_panel_dims, type1_codebook
+    from isac_tpu_torch.ops.sensing import get_rmse
+    from isac_tpu_torch.phy.chains import (SCHGrant, _dmrs_refs, _layout, _make_tx_fn,
+                                           _scrambling_seq, grant_tbs)
+    from isac_tpu_torch.sim.sensing import make_sensing_chain
+
+    gnb = _sensing_gnb()
+    carrier = gnb.carrier
+    n_prb, n_sc, n_tx, num_slots = carrier.n_rb, carrier.n_sc, gnb.num_tx_ants, 20
+    tdd = gnb.tdd
+    # the slots that carry DL, as the per-slot engine records them for sensing:
+    # every D slot whole and the DL symbols of every S slot
+    starts = tuple(s for s in range(num_slots) if tdd.slot_type(s) in "DS")
+    widths = tuple(14 if tdd.slot_type(s) == "D" else tdd.num_dl_syms for s in starts)
+    txs = {}
+    for n_sym in sorted(set(widths)):
+        grant = SCHGrant(n_prb=n_prb, n_layers=2, mcs=19, n_sc_grid=n_sc, n_sym=n_sym)
+        key = grant.layout_key()
+        lay = _layout(key)
+        txs[n_sym] = (grant, _make_tx_fn(key),
+                      torch.as_tensor(_scrambling_seq(grant, lay["cfg"].g), device=dev),
+                      torch.as_tensor(_dmrs_refs(grant, lay["dsyms"]), device=dev))
+    rng = np.random.default_rng(5)
+    cb = type1_codebook(*csirs_panel_dims(n_tx), 2)
+    amp = float(10 ** ((gnb.tx_power_dbm - 30) / 20)
+                * np.sqrt(carrier.ofdm.nfft**2 / (n_sc * n_tx)))
+    grids = []
+    for n_sym in widths:  # a new TB and new random PRG precoders in every slot
+        grant, tx, seq, refs = txs[n_sym]
+        tb = torch.as_tensor(rng.integers(0, 2, (1, grant_tbs(grant))).astype(np.int8), device=dev)
+        w = torch.as_tensor(cb[rng.integers(0, cb.shape[0], (n_prb + 1) // 2)][None], device=dev)
+        port_grid = tx(tb, seq, refs, grant.prbs, grant.rv, w)[0]  # [n_tx, 14, n_sc]
+        grids.append(port_grid[:, :n_sym] * amp)
+    chain, params = make_sensing_chain(
+        gnb, carrier, ((120.0, 40.0, 1.5),), (1.0,), (7.0,), num_slots, starts, widths,
+        device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    e = _host_estimates(chain(grids, gen))
+    t = params.truth[0]
+    hit = (e["valid"] & (np.abs(e["rngEst"] - t["Range"]) <= params.r_res)
+           & (np.abs(e["velEst"] - t["Velocity"]) <= params.v_res))
+    az_err = float(np.nanmin(np.abs(e["aziEst"] - t["Azimuth"])))
+    if not (hit.any() and az_err <= 1.0):
+        raise AssertionError(f"ISAC link: target not found within one bin: rngEst {e['rngEst']} "
+                             f"velEst {e['velEst']} aziEst {e['aziEst']} truth {t}")
+    rep = get_rmse(e, params)
+    i = int(np.argmax(hit))
+    print(f"ISAC link: PDSCH waveform of the {len(starts)} D and S slots of DDDSU x4 ({n_prb} PRB, 2 "
+          f"layers, {n_tx} tx) -> {int(e['valid'].sum())} detections; target at rngEst {e['rngEst'][i]:.3f} m "
+          f"(truth {t['Range']:.3f}, r_res {params.r_res:.4f}), velEst {e['velEst'][i]:.3f} m/s "
+          f"(truth {t['Velocity']}, v_res {params.v_res:.4f}), azimuth error {az_err:.3f} deg; "
+          f"get_rmse matched {rep['numMatched']} of {rep['numTargets']}", flush=True)
+
+
+def phase_sensing_music_2d(dev, params, grids):
+    """The range/velocity MUSIC chain once at full width (a 3276 x 3276 eigh)."""
+    import torch
+
+    from isac_tpu_torch.ops.ofdm import ofdm_demodulate, ofdm_modulate
+    from isac_tpu_torch.ops.sensing import apply_radar_channel, music_2d_estimate
+
+    carrier = _sensing_gnb().carrier
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    rx = apply_radar_channel(ofdm_modulate(grids[0], carrier.ofdm).T, params, gen)
+    rx_grid = ofdm_demodulate(rx.T, carrier.ofdm, carrier.n_sc, 20)
+    del rx
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = music_2d_estimate(rx_grid, grids[0], params)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    e = _host_estimates(est)
+    t = params.truth[0]
+    if not (e["valid"].any() and torch.isfinite(torch.as_tensor(e["rngEst"][e["valid"]])).all()):
+        raise AssertionError(f"music_2d_estimate: no valid estimate: {e}")
+    print(f"music_2d_estimate at full width (n_sc {carrier.n_sc} x n_sym 280, first call): "
+          f"music_2d_ms {ms:.1f} by the host clock; rngEst {e['rngEst'].tolist()} velEst "
+          f"{e['velEst'].tolist()} aziEst {e['aziEst'].tolist()} (truth {t['Range']:.2f} m, "
+          f"{t['Velocity']} m/s, {t['Azimuth']:.2f} deg)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -314,6 +611,13 @@ def main() -> int:
 
     # phase 4: the main path at full width (launch counts read from this run)
     res = phase_main_path(dev)
+
+    # phase 5: the sensing chain (no hand-written kernel on this path)
+    phase_sensing_parity(dev)
+    sen_params, sen_grids = phase_sensing_full(dev)
+    phase_sensing_isac(dev)
+    phase_sensing_music_2d(dev, sen_params, sen_grids)
+    del sen_grids
 
     print(json.dumps({"kernels": [{
         "name": "ldpc_layered", "route": "cuda",

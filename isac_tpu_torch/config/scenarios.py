@@ -1,0 +1,137 @@
+"""Scenario functions — each fills a SimulationParameters aggregate.
+
+Mirrors +scenarios/openStreetMapCity.m:1-119: the shipped scenario is one gNB at
+3.5 GHz / 100 MHz / SCS 30 / TDD 'DDDSU', ULA 8x2-pol, 5 Poisson-dropped UEs,
+1 target with random velocity, PF scheduler, On-Off traffic, UMa pathloss,
+CDL-D (LoS) fading, OSM city bounding box.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from isac_tpu_torch.config.params import (
+    CDLParams,
+    CityParams,
+    GNBParams,
+    PathlossParams,
+    RadarConfig,
+    SchedulingParams,
+    SimulationParameters,
+    TargetParams,
+    TimeParams,
+    TrafficParams,
+    UEParams,
+    ULA,
+)
+
+
+def open_street_map_city(sim: SimulationParameters, seed: int = 0) -> SimulationParameters:
+    """The reference's single shipped scenario (+scenarios/openStreetMapCity.m)."""
+    rng = np.random.default_rng(seed)  # rng('default') analogue (:9)
+    name = "cell1"
+    sim.time = TimeParams(num_frames=1)
+    sim.bs[name] = GNBParams(
+        cell_id=1,
+        position=(0.0, 0.0, 30.0),
+        duplex_mode="TDD",
+        scheduling_type="slot",
+        dl_carrier_freq=3.5e9,
+        ul_carrier_freq=3.5e9,
+        dl_bandwidth=100e6,
+        ul_bandwidth=100e6,
+        scs_khz=30,
+        tdd_pattern="DDDSU",
+        tx_power_dbm=44.0,
+        antenna=ULA(n_v=8, polarizations=2),
+        radar=RadarConfig(),
+    )
+    sim.ue[name] = UEParams(num_ues=5, num_ants=2, drop_radius=200.0, seed=seed)
+    # Target with random radial velocity in [2, 10] m/s (:42-52)
+    sim.target[name] = TargetParams(
+        num_targets=1,
+        rcs_m2=(1.0,),
+        velocity_ms=(float(rng.uniform(2.0, 10.0)),),
+        drop_radius=200.0,
+        seed=seed + 1,
+    )
+    sim.scheduling[name] = SchedulingParams(strategy="PF")
+    sim.traffic[name] = TrafficParams(
+        model="On-Off", dl_app_data_rate_kbps=40e3, ul_app_data_rate_kbps=10e3, seed=seed + 2
+    )
+    sim.pathloss[name] = PathlossParams(model="UMa")
+    sim.com_channel[name] = CDLParams(delay_profile="CDL-D", delay_spread_ns=300.0)
+    sim.city[name] = CityParams()
+    return sim
+
+
+def single_link(sim: SimulationParameters, num_frames: int = 1, seed: int = 0) -> SimulationParameters:
+    """BASELINE config #1: one gNB + one UE, comm-only."""
+    sim = open_street_map_city(sim, seed=seed)
+    sim.ue["cell1"] = UEParams(num_ues=1, num_ants=2, drop_radius=200.0, seed=seed)
+    sim.target["cell1"] = TargetParams(num_targets=0, rcs_m2=(), velocity_ms=(), seed=seed + 1)
+    sim.time = TimeParams(num_frames=num_frames)
+    return sim
+
+
+def sensing_only(sim: SimulationParameters, num_frames: int = 1, seed: int = 0) -> SimulationParameters:
+    """BASELINE config #2: single gNB + 1 target mono-static sensing."""
+    sim = open_street_map_city(sim, seed=seed)
+    sim.ue["cell1"] = UEParams(num_ues=1, num_ants=2, seed=seed)
+    sim.time = TimeParams(num_frames=num_frames)
+    return sim
+
+
+def multi_ue_cell(sim: SimulationParameters, num_ues: int = 8, seed: int = 0) -> SimulationParameters:
+    """BASELINE config #3: single cell, 8 UEs, full comm stack."""
+    sim = open_street_map_city(sim, seed=seed)
+    sim.ue["cell1"] = UEParams(num_ues=num_ues, num_ants=2, drop_radius=200.0, seed=seed)
+    return sim
+
+
+def hex_cell_centers(num_cells: int, inter_site_distance: float = 500.0) -> np.ndarray:
+    """First `num_cells` hex-grid centers spiraling out from the origin.
+
+    Ring k holds 6k sites; centers use the standard pointy-top hex tiling with
+    site pitch = inter_site_distance (getgNBPositions,
+    generateWrapAround.m:94-166). Kept here until the topology package is
+    ported; multi_cell is its only caller so far."""
+    isd = inter_site_distance
+    centers = [(0.0, 0.0)]
+    k = 1
+    # axial-coordinate ring walk
+    dirs = [(1, 0), (0, 1), (-1, 1), (-1, 0), (0, -1), (1, -1)]
+    while len(centers) < num_cells:
+        q, r = k, 0
+        for d in range(6):
+            for _ in range(k):
+                q += dirs[(d + 2) % 6][0]
+                r += dirs[(d + 2) % 6][1]
+                x = isd * (q + r / 2.0)
+                y = isd * (np.sqrt(3.0) / 2.0) * r
+                centers.append((x, y))
+        k += 1
+    return np.asarray(centers[:num_cells], dtype=np.float64)
+
+
+def multi_cell(sim: SimulationParameters, num_cells: int = 2, seed: int = 0) -> SimulationParameters:
+    """BASELINE config #5: multi-cell network (hex wraparound positions)."""
+    sim = open_street_map_city(sim, seed=seed)
+    base = sim.bs["cell1"]
+    centers = hex_cell_centers(num_cells, inter_site_distance=500.0)
+    for i in range(num_cells):
+        name = f"cell{i + 1}"
+        pos = (float(centers[i, 0]), float(centers[i, 1]), 30.0)
+        sim.bs[name] = GNBParams(
+            **{**base.__dict__, "cell_id": i + 1, "position": pos}
+        )
+        for m, default in (
+            (sim.ue, UEParams(num_ues=5, seed=seed + i)),
+            (sim.target, TargetParams(seed=seed + 100 + i)),
+            (sim.scheduling, SchedulingParams()),
+            (sim.traffic, TrafficParams(seed=seed + 200 + i)),
+            (sim.pathloss, PathlossParams()),
+            (sim.com_channel, CDLParams()),
+        ):
+            m.setdefault(name, default)
+    return sim

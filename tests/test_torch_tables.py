@@ -173,7 +173,11 @@ def test_port_imports_neither_jax_nor_isac_tpu():
     """Every module of isac_tpu_torch imports in a fresh interpreter without
     pulling in jax or isac_tpu."""
     mods = [m.name for m in pkgutil.walk_packages(isac_tpu_torch.__path__, "isac_tpu_torch.")]
-    assert "isac_tpu_torch.parallel.links" in mods and "isac_tpu_torch.example" in mods
+    # a sub-package without __init__.py would silently drop out of the walk
+    for m in ("parallel.links", "example", "config.params", "config.scenarios", "ops.ofdm",
+              "ops.dft", "ops.sensing.doa", "ops.sensing.echo", "sim.sensing", "utils.windows",
+              "profile_sensing"):
+        assert f"isac_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
