@@ -36,6 +36,29 @@ gives a non-zero exit code and no final result line):
      finds on the same grid; per-stage times and peak memory; 5c the same
      chain on the DL waveform of the port's own PDSCH transmit on the D slots
      and the DL symbols of the S slots of DDDSU x 4; then the range/velocity MUSIC chain once at full width.
+  6. the link loop (example_link_loop: CSI-RS / SRS measurement, RI / PMI /
+     CQI / TPMI selection, batched PDSCH / PUSCH through the public per-grant
+     functions, HARQ retransmissions with soft combining):
+     6a the loop at 51 PRB / 2 UEs on the card against the same loop on the
+     CPU from the same numpy inputs: RI, subband PMI and CQI, TPMI, MCS, rv,
+     CRC flags equal, TB bits equal wherever the CRC passes, sinr_db within
+     0.05 dB, channel estimates within 1e-4 of max|.|; the layered kernel
+     against its plain version on the soft-buffer-combined LLRs of that run's
+     retransmissions (bit-equal posteriors);
+     6b both loops at full width — 273 PRB, 16 gNB ports, 4 two-antenna UEs on
+     68 PRBs each: first untimed DL slots through a retransmission round and
+     one UL slot, whose every decoder input (new and combined LLRs, at the
+     code sizes and batch sizes of this path) goes through the layered kernel
+     and its plain version (bit-equal posteriors); then three readings of 8
+     timed slots each with distinct TB bits and noise (CUDA events and host
+     clock; the noise is the same numpy draw as in 6a, made before the
+     window). In every window every CRC-passing TB equals the sent one, at
+     least one DL grant fails at rv 0, no TB runs out of the four RVs, every
+     UL grant passes, and the kernel's launch count equals the number of
+     sch_receive_batch calls;
+     6c the flooding decoder: sch_decode(schedule="flooding") on the card
+     against the CPU (TB bits and flags equal) and, at 2 x n_iter, against the
+     layered kernel at n_iter on the same LLRs (the decoded TBs equal).
 Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 
@@ -45,6 +68,7 @@ torch.cuda.is_available() is false or when the package is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -579,6 +603,284 @@ def phase_sensing_music_2d(dev, params, grids):
           f"{t['Velocity']} m/s, {t['Azimuth']:.2f} deg)", flush=True)
 
 
+LOOP_SINR_ATOL_DB = 0.05
+LOOP_H_RTOL = 1e-4
+
+
+def _loop_records(recs):
+    return [(r["ue"], r["rv"], r["mcs"], r["rank"], r["crc_ok"]) for r in recs]
+
+
+@contextlib.contextmanager
+def _recording_layered():
+    """Within the block, every CUDA call that the receive chain hands to the
+    layered decoder is kept as (llr, bg, z, n_iter) in the yielded list."""
+    from isac_tpu_torch.ops import transport
+
+    seen = []
+    real = transport.decode_layered
+
+    def recorder(llr, bg, z, n_iter=6, impl=None):
+        if llr.is_cuda:
+            seen.append((llr.detach().clone(), bg, z, n_iter))
+        return real(llr, bg, z, n_iter=n_iter, impl=impl)
+
+    transport.decode_layered = recorder
+    try:
+        yield seen
+    finally:
+        transport.decode_layered = real
+
+
+def _kernel_equals_plain(calls, what):
+    """The kernel against its plain version on recorded decoder inputs, by
+    bit pattern of the posterior. Returns (max |err|, sorted (bg, z, codewords))."""
+    import torch
+
+    from isac_tpu_torch.ops.ldpc_layered import layered_posterior
+
+    err = 0.0
+    for llr, bg, z, n_iter in calls:
+        flat = llr.reshape(-1, llr.shape[-1])
+        pk = layered_posterior(flat, bg, z, n_iter, impl="cuda")
+        pt = layered_posterior(flat, bg, z, n_iter, impl="torch")
+        err = max(err, float((pk - pt).abs().max()))
+        if not torch.equal(pk.view(torch.int32), pt.view(torch.int32)):
+            raise AssertionError(f"ldpc_layered on {what} BG{bg} Z={z} x{flat.shape[0]}: "
+                                 f"posterior differs, max |err| {err}")
+    shapes = sorted({(bg, z, int(llr.reshape(-1, llr.shape[-1]).shape[0]))
+                     for llr, bg, z, _ in calls})
+    return err, shapes
+
+
+def phase_loop_parity(dev):
+    """Phase 6a: the link loop at 51 PRB / 2 UEs, card against CPU, and the
+    kernel on the combined LLRs of the run's retransmissions."""
+    import numpy as np
+
+    from isac_tpu_torch.example import example_link_loop
+
+    kw = dict(n_prb=51, n_ues=2, n_tx=16, n_ue_ants=2, seed=0)
+    loops = {"cuda": example_link_loop(device=dev, **kw),
+             "cpu": example_link_loop(device="cpu", **kw)}
+    with _recording_layered() as seen:
+        rngs = {k: np.random.default_rng(1) for k in loops}
+        csi = {k: loops[k].csi_report(rngs[k]) for k in loops}
+        for a, b in zip(csi["cuda"], csi["cpu"]):
+            if not (a["rank"] == b["rank"] and np.array_equal(a["pmi_sb"], b["pmi_sb"])
+                    and np.array_equal(a["cqi_sb"], b["cqi_sb"])):
+                raise AssertionError(f"loop parity: CSI report differs: {a} vs {b}")
+            d = float((a["h_est"].cpu() - b["h_est"]).abs().max() / b["h_est"].abs().max())
+            if not d <= LOOP_H_RTOL:
+                raise AssertionError(f"loop parity: CSI-RS estimate differs by {d} of max|H|")
+        retx_calls, max_dsinr = [], 0.0
+        for s in range(6):
+            n0 = len(seen)
+            rec = {k: loops[k].dl_slot(rngs[k]) for k in loops}
+            if _loop_records(rec["cuda"]) != _loop_records(rec["cpu"]):
+                raise AssertionError(f"loop parity DL slot {s}: {_loop_records(rec['cuda'])} vs "
+                                     f"{_loop_records(rec['cpu'])}")
+            for a, b in zip(rec["cuda"], rec["cpu"]):
+                if a["crc_ok"] and not (np.array_equal(a["tb"], b["tb"]) and a["tb_equal"]):
+                    raise AssertionError(f"loop parity DL slot {s}: TB bits differ")
+                max_dsinr = max(max_dsinr, abs(a["sinr_db"] - b["sinr_db"]))
+            if any(r["rv"] != 0 for r in rec["cuda"]):
+                retx_calls += seen[n0:]
+        srs = {k: loops[k].srs_report(rngs[k]) for k in loops}
+        for a, b in zip(srs["cuda"], srs["cpu"]):
+            if not ((a["rank"], a["tpmi"]) == (b["rank"], b["tpmi"])
+                    and np.array_equal(a["cqi_sb"], b["cqi_sb"])):
+                raise AssertionError(f"loop parity: SRS report differs: {a} vs {b}")
+            d = float((a["h_est"].cpu() - b["h_est"]).abs().max() / b["h_est"].abs().max())
+            if not d <= LOOP_H_RTOL:
+                raise AssertionError(f"loop parity: SRS estimate differs by {d} of max|H|")
+        for s in range(2):
+            rec = {k: loops[k].ul_slot(rngs[k]) for k in loops}
+            if _loop_records(rec["cuda"]) != _loop_records(rec["cpu"]):
+                raise AssertionError(f"loop parity UL slot {s}: {_loop_records(rec['cuda'])} vs "
+                                     f"{_loop_records(rec['cpu'])}")
+            for a, b in zip(rec["cuda"], rec["cpu"]):
+                if not (a["crc_ok"] and a["tb_equal"] and np.array_equal(a["tb"], b["tb"])):
+                    raise AssertionError(f"loop parity UL slot {s}: TB lost or differs")
+                max_dsinr = max(max_dsinr, abs(a["sinr_db"] - b["sinr_db"]))
+    if not max_dsinr <= LOOP_SINR_ATOL_DB:
+        raise AssertionError(f"loop parity: sinr_db differs by {max_dsinr} dB")
+    if not retx_calls:
+        raise AssertionError("loop parity: the 51-PRB run had no retransmission to take LLRs from")
+    err, shapes = _kernel_equals_plain(retx_calls, "the 51-PRB loop's combined LLRs")
+    print(f"loop 51 PRB x2 UEs: cuda vs cpu: RI/PMI/CQI/TPMI/MCS/rv/CRC equal over 6 DL + 2 UL "
+          f"slots, TBs equal where the CRC passes, max |d sinr_db| {max_dsinr:.3g} dB; kernel "
+          f"bit-equal to its plain version on the combined LLRs of {len(retx_calls)} "
+          f"retransmission batches (bg, z, codewords) {shapes}", flush=True)
+    return err
+
+
+LOOP_READINGS = 3
+
+
+def phase_loop_full(dev, n_slots=8):
+    """Phase 6b: both loops at full width. First the kernel against its plain
+    version on what the full-width receives hand it (untimed slots, new
+    transmissions and combined retransmissions); then LOOP_READINGS timed
+    windows of n_slots slots per direction, each with its gates. The noise of
+    a timed window is drawn before it (the same numpy draw as in 6a)."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.example import example_link_loop
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+
+    t0 = time.perf_counter()
+    loop = example_link_loop(device=dev)
+    rng = np.random.default_rng(1)
+    # untimed slots (they also bring the constants onto the device): every
+    # decoder input of the full-width path, held against the plain version
+    kernel_err, shapes = 0.0, {}
+    with _recording_layered() as seen:
+        loop.csi_report(rng)
+        rvs = set()
+        for _ in range(6):
+            rvs |= {r["rv"] for r in loop.dl_slot(rng)}
+            if len(rvs) > 1 and len(seen) >= 4:
+                break
+        if rvs == {0}:
+            raise AssertionError("dl loop: the untimed slots had no retransmission round")
+        n_dl = len(seen)
+        loop.srs_report(rng)
+        loop.ul_slot(rng)
+    for what, calls in (("dl", seen[:n_dl]), ("ul", seen[n_dl:])):
+        if not calls:
+            raise AssertionError(f"{what} loop: no decoder input was recorded")
+        err, shapes[what] = _kernel_equals_plain(calls, f"the 273-PRB {what} loop's LLRs")
+        kernel_err = max(kernel_err, err)
+    print(f"loop 273 PRB: kernel bit-equal to its plain version on the decoder inputs of "
+          f"{n_dl} DL receives (rv seen {sorted(rvs)}) and {len(seen) - n_dl} UL receives, "
+          f"(bg, z, codewords) dl {shapes['dl']} ul {shapes['ul']}", flush=True)
+    del seen
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    res = {"setup_s": setup_s}
+
+    def timed(call, n):
+        """(event ms per call, host ms per call, results) of n calls of the
+        loop's method `call`, with each call's noise drawn beforehand."""
+        fn = getattr(loop, call)
+        noises = [loop.draw_noise(rng, call) for _ in range(n)]
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        outs = [fn(rng, noise=nz) for nz in noises]
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n, (time.perf_counter() - t1) / n * 1e3, outs
+
+    def report(call):
+        reads = [timed(call, 4) for _ in range(LOOP_READINGS)]
+        res[f"{call}_ms_readings"] = [r[0] for r in reads]
+        res[f"{call}_host_ms_readings"] = [r[1] for r in reads]
+        res[f"{call}_ms"] = sorted(r[0] for r in reads)[LOOP_READINGS // 2]
+        return reads[-1][2][-1]
+
+    rep = report("csi_report")
+    res["dl_rank_cqi"] = [(r["rank"], int(r["cqi_sb"].min()), int(r["cqi_sb"].max())) for r in rep]
+    launches = {}
+    for direction in ("dl", "ul"):
+        if direction == "ul":
+            rep = report("srs_report")
+            res["ul_rank_tpmi"] = [(r["rank"], r["tpmi"]) for r in rep]
+        reads = []
+        for _ in range(LOOP_READINGS):
+            # a new HARQ epoch, so every window starts from new transmissions
+            loop.harq[direction.upper()] = [None] * loop.n_ues
+            calls0 = loop.rx_calls
+            decode_layered_cuda.launches = 0
+            ms, host_ms, outs = timed(f"{direction}_slot", n_slots)
+            n_launch = decode_layered_cuda.launches
+            rx_calls = loop.rx_calls - calls0
+            recs = [r for o in outs for r in o]
+            for r in recs:
+                if r["crc_ok"] and not r["tb_equal"]:
+                    raise AssertionError(f"{direction} loop: a CRC-passing TB differs from the sent one")
+                if not np.isfinite(r["sinr_db"]):
+                    raise AssertionError(f"{direction} loop: sinr_db not finite: {r}")
+                if r["dropped"]:
+                    raise AssertionError(f"{direction} loop: a TB ran out of the four RVs: {r}")
+            if n_launch != rx_calls or rx_calls <= 0:
+                raise AssertionError(f"{direction} loop: {n_launch} kernel launches for "
+                                     f"{rx_calls} sch_receive_batch calls")
+            by_rv = {rv: [sum(r["crc_ok"] for r in recs if r["rv"] == rv),
+                          sum(1 for r in recs if r["rv"] == rv)] for rv in (0, 3, 2, 1)}
+            if direction == "dl" and not by_rv[0][0] < by_rv[0][1]:
+                raise AssertionError(f"dl loop: no grant failed at rv 0: {by_rv}")
+            if direction == "dl" and sum(n for _, n in list(by_rv.values())[1:]) == 0:
+                raise AssertionError(f"dl loop: no retransmission ran: {by_rv}")
+            if direction == "ul" and not all(r["crc_ok"] for r in recs):
+                raise AssertionError(f"ul loop: a grant failed: {by_rv}")
+            tb_bits = sum(len(r["tb"]) for r in recs if r["crc_ok"])
+            reads.append({"ms": ms, "host_ms": host_ms, "launches": n_launch, "rx_calls": rx_calls,
+                          "goodput_mbps": tb_bits / n_slots / (ms / 1e3) / 1e6, "by_rv": by_rv,
+                          "mcs_rank": sorted({(r["mcs"], r["rank"]) for r in recs}),
+                          "sinr_db_last": [round(r["sinr_db"], 2) for r in outs[-1]]})
+        # the launch count reported for the path is the first window's
+        launches[direction] = reads[0]["launches"]
+        mid = sorted(reads, key=lambda r: r["ms"])[LOOP_READINGS // 2]
+        res.update({
+            f"loop_{direction}_slot_ms": mid["ms"], f"loop_{direction}_host_slot_ms": mid["host_ms"],
+            f"loop_{direction}_slot_ms_readings": [r["ms"] for r in reads],
+            f"loop_{direction}_host_slot_ms_readings": [r["host_ms"] for r in reads],
+            f"loop_{direction}_goodput_mbps": mid["goodput_mbps"],
+            f"{direction}_crc_ok_of_sent_by_rv": [{str(k): v for k, v in r["by_rv"].items()}
+                                                  for r in reads],
+            f"{direction}_mcs_rank": reads[0]["mcs_rank"],
+            f"{direction}_ldpc_layered_launches": [r["launches"] for r in reads],
+            f"{direction}_sch_receive_batch_calls": [r["rx_calls"] for r in reads],
+            f"{direction}_sinr_db_last": reads[-1]["sinr_db_last"],
+        })
+    res["peak_memory_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    print("link loop 273 PRB x4 UEs, 16 gNB ports: " + json.dumps(res), flush=True)
+    return res, launches, kernel_err
+
+
+def phase_flooding(dev):
+    """Phase 6c: the flooding schedule, card against CPU and against the
+    layered kernel at half the iterations."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.ops import transport
+    from isac_tpu_torch.phy.chains import SCHGrant, _layout
+
+    g = SCHGrant(n_prb=68, mcs=15, n_layers=2, n_sc_grid=3276)
+    cfg = _layout(g.layout_key())["cfg"]
+    rng = np.random.default_rng(3)
+    tb = rng.integers(0, 2, (4, cfg.a)).astype(np.int8)
+    enc = transport.sch_encode(torch.as_tensor(tb), cfg, 0).numpy().astype(np.float64)
+    sig = np.array([0.45, 0.45, 0.5, 1.4])  # the last grant does not decode
+    y = (1.0 - 2.0 * enc) + sig[:, None] * rng.standard_normal(enc.shape)
+    llr = (2.0 * y / sig[:, None] ** 2).astype(np.float32)
+    llr_d = torch.as_tensor(llr, device=dev)
+    tb_c, ok_c, _ = transport.sch_decode(torch.as_tensor(llr), cfg, 0, n_iter=12, schedule="flooding")
+    t0 = time.perf_counter()
+    tb_f, ok_f, _ = transport.sch_decode(llr_d, cfg, 0, n_iter=12, schedule="flooding")
+    torch.cuda.synchronize()
+    flood_ms = (time.perf_counter() - t0) * 1e3
+    tb_l, ok_l, _ = transport.sch_decode(llr_d, cfg, 0, n_iter=6, schedule="layered")
+    ok = ok_c.tolist()
+    if not (ok_f.cpu().tolist() == ok == [True, True, True, False]):
+        raise AssertionError(f"flooding: CRC flags card {ok_f.tolist()} cpu {ok}")
+    if not torch.equal(tb_f.cpu()[ok_c], tb_c[ok_c]):
+        raise AssertionError("flooding: TB bits differ between the card and the CPU")
+    if not (ok_l.cpu().tolist() == ok and torch.equal(tb_l[ok_l], tb_f[ok_l])
+            and np.array_equal(tb_f.cpu().numpy()[:3], tb[:3])):
+        raise AssertionError(f"flooding at 12 iterations vs layered kernel at 6: flags "
+                             f"{ok_l.tolist()} vs {ok}, or TBs differ")
+    print(f"flooding BG{cfg.bg} Z={cfg.z} x{4 * cfg.c} code blocks: card vs cpu TB bits and CRC "
+          f"flags equal {ok}; flooding x12 and the layered kernel x6 decode the same TBs; "
+          f"first call on the card {flood_ms:.1f} ms by the host clock", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -617,13 +919,23 @@ def main() -> int:
     sen_params, sen_grids = phase_sensing_full(dev)
     phase_sensing_isac(dev)
     phase_sensing_music_2d(dev, sen_params, sen_grids)
-    del sen_grids
+    del sen_grids, sen_params
+    torch.cuda.empty_cache()
+
+    # phase 6: the link loop (its receive launches the same kernel)
+    max_err = max(max_err, phase_loop_parity(dev))
+    _, loop_launches, loop_err = phase_loop_full(dev)
+    max_err = max(max_err, loop_err)
+    phase_flooding(dev)
 
     print(json.dumps({"kernels": [{
         "name": "ldpc_layered", "route": "cuda",
         "source": "isac_tpu_torch/csrc/ldpc_layered.cu",
         "replaces": "isac_tpu/ops/ldpc_layered.py:169",
-        "launches": res["ldpc_layered_launches"], "max_abs_err": max_err,
+        "launches": res["ldpc_layered_launches"],
+        "launches_by_path": {"link_step": res["ldpc_layered_launches"],
+                             "dl_loop": loop_launches["dl"], "ul_loop": loop_launches["ul"]},
+        "max_abs_err": max_err,
         "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
         "library_ms": None, "ms_readings": main_k["ms_readings"],

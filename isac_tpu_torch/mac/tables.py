@@ -8,6 +8,8 @@ numpy copy of isac_tpu/mac/tables.py, kept so the port never imports isac_tpu.
 
 from __future__ import annotations
 
+import numpy as np
+
 # TS 38.214 Table 5.1.3.1-1 (qam64)
 MCS_TABLE_64QAM = [
     ("QPSK", 120, 0.2344), ("QPSK", 157, 0.3066), ("QPSK", 193, 0.3770),
@@ -42,3 +44,38 @@ def mcs_info(mcs: int, table: str = "qam64") -> tuple:
     tab = MCS_TABLE_64QAM if table == "qam64" else MCS_TABLE_256QAM
     mod, r1024, eff = tab[mcs]
     return mod, r1024 / 1024.0, eff
+
+
+def max_mcs(table: str = "qam64") -> int:
+    return len(MCS_TABLE_64QAM if table == "qam64" else MCS_TABLE_256QAM) - 1
+
+
+# CQI (table 1) efficiency — used by the scheduler's CQI->MCS mapping
+CQI_EFFICIENCY = np.array(
+    [0.0, 0.1523, 0.2344, 0.3770, 0.6016, 0.8770, 1.1758, 1.4766,
+     1.9141, 2.4063, 2.7305, 3.3223, 3.9023, 4.5234, 5.1152, 5.5547]
+)
+
+
+def cqi_to_mcs(cqi: int, table: str = "qam64") -> int:
+    """Highest MCS whose efficiency does not exceed the CQI's efficiency
+    (schedulerEntity.m getMCSIndex:2587-2602)."""
+    cqi = int(np.clip(cqi, 0, 15))
+    if cqi <= 0:
+        return 0
+    eff = CQI_EFFICIENCY[cqi]
+    tab = MCS_TABLE_64QAM if table == "qam64" else MCS_TABLE_256QAM
+    best = 0
+    for i, (_, _, e) in enumerate(tab):
+        if e <= eff + 1e-9:
+            best = i
+    return best
+
+
+# TS 38.214 Table 5.1.2.2.1-1: nominal RBG size P by BWP size, configs 1/2
+def rbg_size(n_prb: int, config: int = 1) -> int:
+    bounds = [(36, 2, 4), (72, 4, 8), (144, 8, 16), (275, 16, 16)]
+    for hi, p1, p2 in bounds:
+        if n_prb <= hi:
+            return p1 if config == 1 else p2
+    return 16

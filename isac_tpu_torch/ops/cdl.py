@@ -3,8 +3,8 @@ counterpart of isac_tpu/ops/cdl.py).
 
 Ray phases and coupling are drawn once per link from a seed with numpy, in
 the reference's exact RNG call order, so the same seed gives the same
-CDLLink arrays. The frequency response of a batch of links is built in
-isac_tpu_torch/parallel/links.py.
+CDLLink arrays. The single-link frequency response is here; a batch of links
+goes through isac_tpu_torch/parallel/links.py.
 """
 
 from __future__ import annotations
@@ -12,7 +12,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from isac_tpu_torch.utils.device import resolve_device
 from isac_tpu_torch.utils.geometry import SPEED_OF_LIGHT
 
 # TR 38.901 Table 7.5-3: ray offset angles within a cluster (20 rays)
@@ -287,6 +289,44 @@ def build_cdl_link(
         profile=profile,
         delay_spread_ns=delay_spread_ns,
     )
+
+
+def freq_phases(tau: np.ndarray, freqs: np.ndarray) -> np.ndarray:
+    """exp(-2j pi f tau) [..., K, R] (float64 phase on the host: f*tau reaches
+    ~100 cycles)."""
+    ang = -2.0 * np.pi * freqs.astype(np.float64)[..., :, None] * tau[..., None, :]
+    return np.exp(1j * ang).astype(np.complex64)
+
+
+def time_phases(nu: np.ndarray, t_syms: np.ndarray) -> np.ndarray:
+    """exp(2j pi nu t) [..., S, R]."""
+    ang = 2.0 * np.pi * np.asarray(t_syms, np.float64)[..., :, None] * nu[..., None, :]
+    return np.exp(1j * ang).astype(np.complex64)
+
+
+def cdl_frequency_response(link: CDLLink, t_syms: np.ndarray, freqs: np.ndarray,
+                           device=None) -> torch.Tensor:
+    """H[sym, sc, rx, tx] at symbol times t_syms [S] (s) and subcarrier
+    frequencies freqs [K] (Hz, baseband offsets from fc): a matrix product
+    over rays, [S*K, R] phases x [R, rx*tx] coefficients.
+
+    device: None means the card (raises without one)."""
+    dev = resolve_device(device)
+    n_rx, n_tx, n_rays = link.coeff.shape
+    tt = np.asarray(t_syms, np.float64)
+    ft = torch.as_tensor(time_phases(link.nu, tt), device=dev)
+    ff = torch.as_tensor(freq_phases(link.tau, np.asarray(freqs)), device=dev)
+    c2 = torch.as_tensor(np.ascontiguousarray(link.coeff.reshape(n_rx * n_tx, n_rays).T),
+                         device=dev)  # [R, rx*tx]
+    ph = ft[:, None, :] * ff[None, :, :]
+    h = torch.matmul(ph.reshape(-1, n_rays), c2)
+    return h.reshape(len(tt), len(freqs), n_rx, n_tx)
+
+
+def apply_channel_freq(grid: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Per-RE channel application: grid [tx, sym, sc], h [sym, sc, rx, tx]
+    -> rx grid [rx, sym, sc]."""
+    return torch.einsum("tsk,skat->ask", grid, h)
 
 
 def subcarrier_freqs(n_sc: int, scs_hz: float) -> np.ndarray:

@@ -45,6 +45,15 @@ def crc_matrix(kind: str, n_bits: int) -> np.ndarray:
     return seqs[idx]
 
 
+def crc_compute_np(bits: np.ndarray, kind: str) -> np.ndarray:
+    """Host-side CRC of an MSB-first bit vector (uint8). Returns L bits MSB-first."""
+    B = crc_matrix(kind, int(bits.shape[-1]))
+    r = (bits.astype(np.int64) @ B.astype(np.int64)) % 2
+    L = crc_length(kind)
+    # e_k bit t corresponds to coefficient of x^t; MSB-first output = reversed
+    return r[..., ::-1].astype(np.uint8)[..., :L]
+
+
 @lru_cache(maxsize=64)
 def _crc_matrix_dev(kind: str, n_bits: int, device: torch.device) -> torch.Tensor:
     b = np.ascontiguousarray(crc_matrix(kind, n_bits)[:, ::-1])  # MSB-first cols
@@ -68,3 +77,17 @@ def crc_check(bits_with_crc: torch.Tensor, kind: str) -> torch.Tensor:
     L = crc_length(kind)
     payload, rx_crc = bits_with_crc[..., :-L], bits_with_crc[..., -L:]
     return torch.all(rx_crc == crc_compute(payload, kind), dim=-1)
+
+
+def crc_bitserial_reference(bits: np.ndarray, kind: str) -> np.ndarray:
+    """Slow bit-serial long division — golden reference for tests only."""
+    L, taps = CRC_POLYS[kind]
+    g = np.zeros(L + 1, dtype=np.uint8)
+    g[0] = 1  # x^L term, MSB-first
+    for j in taps:
+        g[L - j] = 1
+    buf = np.concatenate([bits.astype(np.uint8), np.zeros(L, dtype=np.uint8)])
+    for i in range(len(bits)):
+        if buf[i]:
+            buf[i : i + L + 1] ^= g
+    return buf[-L:]

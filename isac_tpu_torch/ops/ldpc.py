@@ -6,7 +6,7 @@ gathers and every per-row XOR sum is a one-hot [rows, edges] float32 product
 taken mod 2 (exact: the sums are small integers). The reference's TPU-only
 static-roll branch (``_use_static_rolls``) gives the same bits and is not
 ported. Layered decoding lives in ldpc_layered.py; the flooding decoder is
-not ported yet.
+``decode`` below.
 """
 
 from __future__ import annotations
@@ -98,9 +98,12 @@ def lifted_code(bg: int, z: int) -> LiftedCode:
     )
 
 
-def _shift_idx(shifts: np.ndarray, z: int) -> np.ndarray:
-    """[E, Z] gather index (i + s) % z: (P^s v)[i] = v[(i+s) mod Z]."""
-    return ((np.arange(z)[None, :] + shifts[:, None]) % z).astype(np.int64)
+def _shift_idx(shifts: np.ndarray, z: int, inverse: bool = False) -> np.ndarray:
+    """[E, Z] gather index (i + s) % z: (P^s v)[i] = v[(i+s) mod Z]; inverse
+    gives (i - s) % z."""
+    i = np.arange(z)[None, :]
+    s = shifts[:, None]
+    return ((i - s) % z if inverse else (i + s) % z).astype(np.int64)
 
 
 def _gather_shift(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -211,6 +214,139 @@ def parity_check(hard_full: torch.Tensor, bg: int, z: int) -> torch.Tensor:
     return torch.all(torch.remainder(torch.round(sy), 2.0) == 0, dim=-1).all(dim=-1)
 
 
+# --------------------------------------------------------------- flooding decoder
+
+
+@lru_cache(maxsize=32)
+def _decode_plan(bg: int, z: int):
+    """Precomputed gathers for the flooding min-sum decoder."""
+    code = lifted_code(bg, z)
+    e_count = code.rows.shape[0]
+    # group edges by row, padded to max degree
+    dmax = int(np.max(np.bincount(code.rows)))
+    row_edges = np.full((code.n_rows, dmax), -1, np.int64)
+    fill = np.zeros(code.n_rows, np.int64)
+    for e in range(e_count):
+        r = code.rows[e]
+        row_edges[r, fill[r]] = e
+        fill[r] += 1
+    row_pad = row_edges < 0
+    row_edges = np.maximum(row_edges, 0)
+    # position of edge within its row group (for scatter-back)
+    edge_slot = np.zeros(e_count, np.int64)
+    for r in range(code.n_rows):
+        for d in range(dmax):
+            if not row_pad[r, d]:
+                edge_slot[row_edges[r, d]] = d
+    # one-hot col aggregation matrix [n_cols, E]
+    col_onehot = np.zeros((code.n_cols, e_count), np.float32)
+    col_onehot[code.cols, np.arange(e_count)] = 1.0
+    fwd_idx = _shift_idx(code.shifts, z, inverse=False)
+    inv_idx = _shift_idx(code.shifts, z, inverse=True)
+    return code, row_edges, row_pad, edge_slot, col_onehot, fwd_idx, inv_idx, dmax
+
+
+@lru_cache(maxsize=64)
+def _decode_tensors(bg: int, z: int, device: torch.device) -> dict:
+    code, row_edges, row_pad, edge_slot, col_onehot, fwd_idx, inv_idx, _ = _decode_plan(bg, z)
+    arrays = {
+        "cols": code.cols.astype(np.int64),
+        "rows": code.rows.astype(np.int64),
+        "row_edges": row_edges,
+        "real": (~row_pad)[..., None],  # [R, D, 1] True where a real edge
+        "slot": edge_slot,
+        "col_oneh": col_onehot,
+        "fwd_idx": fwd_idx,
+        "inv_idx": inv_idx,
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+
+
+def _decode_flooding(llr: torch.Tensor, bg: int, z: int, n_iter: int, norm: float,
+                     early_exit: bool, exit_dims: int | None = None):
+    """The flooding decoder with its iteration counts. Returns (hard [..., K]
+    int8, parity_ok [...] bool, iterations run, one per stop group).
+
+    exit_dims: how many trailing batch axes share ONE early-exit decision
+    (None: all of them, i.e. one decision for the call, as the reference's
+    while_loop over the call's batch). Leading axes beyond that are stop
+    groups of their own: a finished group's messages and totals are frozen
+    while the others run — what the reference's vmap over grants gives.
+    The all-groups-done test is one device-to-host read per iteration."""
+    code = lifted_code(bg, z)
+    t = _decode_tensors(bg, z, llr.device)
+    batch = llr.shape[:-1]
+    nb = len(batch)
+    ed = nb if exit_dims is None else exit_dims
+    group_shape = batch[: nb - ed]
+    lv = llr.reshape(*batch, code.n_cols, z).to(torch.float32)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=llr.device)
+    d_iota = torch.arange(t["row_edges"].shape[1], device=llr.device)[:, None]  # [D, 1]
+
+    def body(c2v, total):
+        # variable -> check (in the shifted/check domain)
+        v2c = _gather_shift(total[..., t["cols"], :], t["fwd_idx"]) - c2v
+        # check node: min-sum with self-exclusion via min1/min2
+        grp = v2c[..., t["row_edges"], :]  # [..., R, D, Z]
+        real = t["real"]
+        mag = torch.where(real, torch.abs(grp), inf)
+        # sign(0) must be +1 (punctured zero-LLRs would zero the products)
+        sgn = torch.where(real & (grp < 0), -1.0, 1.0)
+        m1, arg = torch.min(mag, dim=-2, keepdim=True)
+        own = d_iota == arg
+        m2 = torch.amin(torch.where(own, inf, mag), dim=-2, keepdim=True)
+        sprod = torch.prod(sgn, dim=-2, keepdim=True)
+        out = norm * sprod * sgn * torch.where(own, m2, m1)  # exclude own sign/mag
+        out = torch.where(real, out, torch.zeros_like(out))
+        # scatter back per edge: edge e lives at (row[e], slot[e])
+        new_c2v = out[..., t["rows"], t["slot"], :]
+        # check -> variable (unshift) and aggregate per column
+        agg = torch.matmul(t["col_oneh"], _gather_shift(new_c2v, t["inv_idx"]))
+        return new_c2v, lv + agg
+
+    def group_ok(total):
+        ok = parity_check((total < 0).reshape(*batch, code.n_cols * z), bg, z)
+        return ok.reshape(*group_shape, -1).all(dim=-1)
+
+    c2v = lv.new_zeros((*batch, code.rows.shape[0], z))
+    total = lv
+    iters = torch.zeros(group_shape, dtype=torch.int32, device=llr.device)
+    if early_exit:
+        done = torch.zeros(group_shape, dtype=torch.bool, device=llr.device)
+        for it in range(n_iter):
+            if it and bool(done.all()):
+                break
+            new_c2v, new_total = body(c2v, total)
+            if group_shape:
+                act = (~done).reshape(*group_shape, *([1] * (ed + 2)))
+                c2v = torch.where(act, new_c2v, c2v)
+                total = torch.where(act, new_total, total)
+            else:
+                c2v, total = new_c2v, new_total
+            iters = iters + (~done).to(torch.int32)
+            done = done | group_ok(total)
+    else:
+        for _ in range(n_iter):
+            c2v, total = body(c2v, total)
+        iters = iters + n_iter
+    hard_full = (total < 0).to(torch.int8).reshape(*batch, code.n_cols * z)
+    return hard_full[..., : code.k], parity_check(hard_full, bg, z), iters
+
+
+def decode(llr: torch.Tensor, bg: int, z: int, n_iter: int = 6, norm: float = 0.75,
+           early_exit: bool = False):
+    """Flooding normalized min-sum. llr [..., n_full] (positive = bit 0)
+    -> (hard bits [..., K] int8, parity_ok [...] bool).
+
+    early_exit (opt-in; the default keeps a codeword's iteration count and
+    posterior independent of its batch-mates): stop as soon as EVERY codeword
+    of the call's batch satisfies all parity checks, at most n_iter
+    iterations. A failing codeword keeps every codeword of the call running
+    with it."""
+    hard, ok, _ = _decode_flooding(llr, bg, z, n_iter, norm, early_exit)
+    return hard, ok
+
+
 # ----------------------------------------------------------------- rate matching
 
 
@@ -237,29 +373,89 @@ def _rv_k0_virtual(bg: int, z: int, n_filler: int, k: int) -> np.ndarray:
     return np.asarray(out, np.int32)
 
 
-def rate_match(codeword: torch.Tensor, bg: int, z: int, e_bits: int, rv: int,
+def rate_match_indices(
+    bg: int, z: int, e_bits: int, rv: int, n_filler: int, k: int, n_cb: int | None = None
+) -> np.ndarray:
+    """Circular-buffer bit-selection indices (§5.4.2.1), skipping filler bits.
+
+    Returns positions into the PUNCTURED codeword (length 66Z/50Z, i.e. the
+    full codeword minus its first 2Z bits)."""
+    code_n = (66 if bg == 1 else 50) * z
+    if n_cb is None:
+        n_cb = code_n
+    k0 = rv_start(bg, rv, n_cb, z)
+    f_start, f_end = k - n_filler - 2 * z, k - 2 * z
+    circ = (k0 + np.arange(n_cb)) % n_cb
+    sel = circ[~((circ >= f_start) & (circ < f_end))]
+    reps = int(np.ceil(e_bits / sel.shape[0]))
+    return np.tile(sel, reps)[:e_bits]
+
+
+def interleave_indices(e_bits: int, qm: int) -> np.ndarray:
+    """§5.4.2.2 bit interleaver: f = e.reshape(Qm, E/Qm).T.ravel(). Returns perm
+    such that f = e[perm]."""
+    return np.arange(e_bits).reshape(qm, e_bits // qm).T.ravel()
+
+
+@lru_cache(maxsize=512)
+def rate_match_indices_all_rv(bg: int, z: int, e_bits: int, n_filler: int, k: int):
+    """[4, E] bit-selection indices for every RV."""
+    return np.stack(
+        [rate_match_indices(bg, z, e_bits, rv, n_filler, k) for rv in range(4)]
+    )
+
+
+@lru_cache(maxsize=256)
+def _rv_k0_dev(bg: int, z: int, n_filler: int, k: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_rv_k0_virtual(bg, z, n_filler, k).astype(np.int64), device=device)
+
+
+def _roll_per_item(x: torch.Tensor, shift) -> torch.Tensor:
+    """torch.roll(x, shift, -1) with an int shift, or with a per-item integer
+    tensor `shift` broadcastable to x.shape[:-1] (one gather; the same
+    elements land in the same places, so bits and floats are unchanged)."""
+    if not torch.is_tensor(shift):
+        return torch.roll(x, int(shift), dims=-1)
+    n = x.shape[-1]
+    idx = torch.remainder(torch.arange(n, device=x.device) - shift[..., None], n)
+    return torch.gather(x, -1, idx.expand(x.shape))
+
+
+def _rv_shift(rv, bg: int, z: int, n_filler: int, k: int, like: torch.Tensor):
+    """Virtual circular-buffer start for rv: a Python int for an int rv, else
+    a tensor gathered from the four starts (rv: integer tensor, one entry per
+    leading index of `like`, given with a trailing 1 for the code-block axis)."""
+    if torch.is_tensor(rv):
+        return _rv_k0_dev(bg, z, n_filler, k, like.device)[rv.to(torch.int64)]
+    return int(_rv_k0_virtual(bg, z, n_filler, k)[int(rv)])
+
+
+def rate_match(codeword: torch.Tensor, bg: int, z: int, e_bits: int, rv,
                n_filler: int, k: int, qm: int) -> torch.Tensor:
     """Full codeword [..., n_full] -> transmitted bits [..., E]: puncture the
     first 2Z bits, drop fillers, circular selection from the RV start with
-    repetition, then the §5.4.2.2 [Qm, E/Qm] interleaver transpose."""
+    repetition, then the §5.4.2.2 [Qm, E/Qm] interleaver transpose.
+
+    rv: a Python int for the whole batch, or an integer tensor broadcastable
+    to codeword.shape[:-1] (a batch that mixes new and repeated transmissions)."""
     lead = codeword.shape[:-1]
     buf = codeword[..., 2 * z:]
     f_start, f_end = k - n_filler - 2 * z, k - 2 * z
     vbuf = torch.cat([buf[..., :f_start], buf[..., f_end:]], dim=-1) if n_filler else buf
     n_v = vbuf.shape[-1]
-    r = torch.roll(vbuf, -int(_rv_k0_virtual(bg, z, n_filler, k)[int(rv)]), dims=-1)
+    r = _roll_per_item(vbuf, -_rv_shift(rv, bg, z, n_filler, k, vbuf))
     reps = -(-e_bits // n_v)
     e = torch.cat([r] * reps, dim=-1)[..., :e_bits] if reps > 1 else r[..., :e_bits]
     return e.reshape(*lead, qm, e_bits // qm).transpose(-1, -2).reshape(*lead, e_bits)
 
 
 def rate_recover(
-    llr_e: torch.Tensor, bg: int, z: int, rv: int, n_filler: int, k: int, qm: int,
+    llr_e: torch.Tensor, bg: int, z: int, rv, n_filler: int, k: int, qm: int,
     soft_buffer: torch.Tensor | None = None, filler_llr: float = 1e4,
 ):
     """Received LLRs [..., E] -> (full-codeword LLRs [..., n_full], circular
     buffer [..., Ncb]), combining into soft_buffer (HARQ) when given.
-    Punctured bits get LLR 0, fillers a large bit-0 LLR.
+    Punctured bits get LLR 0, fillers a large bit-0 LLR. rv as in rate_match.
 
     The circular scatter-add is a fold-sum over n_v-long chunks. It is summed
     explicitly left to right — the order of the reference's reduce — so
@@ -277,7 +473,7 @@ def rate_recover(
     folded = chunks[..., 0, :]
     for j in range(1, chunks.shape[-2]):
         folded = folded + chunks[..., j, :]
-    vbuf = torch.roll(folded, int(_rv_k0_virtual(bg, z, n_filler, k)[int(rv)]), dims=-1)
+    vbuf = _roll_per_item(folded, _rv_shift(rv, bg, z, n_filler, k, folded))
     f_start, f_end = k - n_filler - 2 * z, k - 2 * z
     if n_filler > 0:
         buf = torch.cat(

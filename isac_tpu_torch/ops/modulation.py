@@ -102,6 +102,31 @@ def _axis_levels(qm: int):
     return (lvl * _QAM_SCALE[qm]).astype(np.float32), bits.astype(np.float32)
 
 
+def _gray_axis_llr_closed(t: torch.Tensor, m: int) -> torch.Tensor:
+    """Exact max-log LLRs for one Gray-PAM axis in closed form.
+
+    t: observation in unscaled level units (levels are the odd integers
+    +-1..+-(2^m-1)); returns [..., m], positive for bit 0. Per stage the
+    sign-bit max-log value is (t+1)^2 - (t-p)^2 with p the nearest positive
+    odd level = clip(2*floor(|t|/2)+1, 1, 2D-1), extended by odd symmetry;
+    the Gray fold t <- D - |t| recurses to the next bit. Equal to the
+    masked-min form of demodulate_llr; kept as the reference algebra, not
+    used on the receive path."""
+    outs = []
+    d = float(1 << (m - 1))
+    for _ in range(m):
+        a = torch.abs(t)
+        if d == 1.0:
+            outs.append(4.0 * t)  # single level +-1: (t+1)^2-(t-1)^2
+        else:
+            p = torch.clamp(2.0 * torch.floor(a / 2.0) + 1.0, 1.0, 2.0 * d - 1.0)
+            lmag = 2.0 * a * (1.0 + p) + 1.0 - p * p
+            outs.append(torch.sign(t) * lmag)
+        t = d - a
+        d /= 2.0
+    return torch.stack(outs, dim=-1)
+
+
 def demodulate_llr(symbols: torch.Tensor, noise_var, mod: str) -> torch.Tensor:
     """Max-log LLRs, positive for bit=0. symbols [..., n], noise_var
     broadcastable to symbols -> llr [..., n*Qm].
@@ -134,6 +159,12 @@ def demodulate_llr(symbols: torch.Tensor, noise_var, mod: str) -> torch.Tensor:
     return llr.reshape(*symbols.shape[:-1], symbols.shape[-1] * qm)
 
 
+def scramble_bits(bits: torch.Tensor, c_seq) -> torch.Tensor:
+    """b XOR c. c_seq: precomputed Gold sequence (same length), tensor or numpy."""
+    c = torch.as_tensor(c_seq, device=bits.device).to(torch.int32)
+    return torch.bitwise_xor(bits.to(torch.int32), c).to(bits.dtype)
+
+
 def descramble_llr(llr: torch.Tensor, c_seq: torch.Tensor) -> torch.Tensor:
     """Soft descrambling: flip the LLR sign where c=1."""
     return llr * (1.0 - 2.0 * c_seq.to(llr.dtype))
@@ -147,3 +178,8 @@ def pdsch_scrambling_cinit(rnti: int, q: int, n_id: int) -> int:
 def pusch_scrambling_cinit(rnti: int, n_id: int) -> int:
     """TS 38.211 §6.3.1.1 (non-UCI): c_init = rnti*2^15 + n_id."""
     return (rnti << 15) + n_id
+
+
+def hard_decision(llr: torch.Tensor) -> torch.Tensor:
+    """LLR > 0 => bit 0 (positive-for-zero convention)."""
+    return (llr < 0).to(torch.int8)

@@ -4,9 +4,11 @@
 Chain per TS 38.212: TB CRC (24A, or 16 if A<=3824) -> base-graph select ->
 segmentation + per-CB CRC24B + fillers -> LDPC encode -> rate match
 (RV circular buffer + Qm interleaver) -> concatenate. Decode mirrors it with
-per-CB soft-buffer HARQ combining and the layered min-sum decoder. Every
-function takes any number of leading batch axes (the link axis of the batched
-link step).
+per-CB soft-buffer HARQ combining and the layered (default) or flooding
+min-sum decoder. Every function takes any number of leading batch axes (the
+link axis of the batched link step, the grant axis of the per-grant chains);
+rv is a Python int for the whole batch or an integer tensor with one entry
+per leading index.
 """
 
 from __future__ import annotations
@@ -133,9 +135,16 @@ def _cb_groups(cfg: SCHConfig) -> tuple:
     return tuple(groups)
 
 
-def sch_encode(tb_bits: torch.Tensor, cfg: SCHConfig, rv: int) -> torch.Tensor:
+def _rv_per_cb(rv):
+    """rv for ldpc.rate_match/rate_recover: a per-grant tensor gets a trailing
+    axis that broadcasts over the code blocks."""
+    return rv[..., None] if torch.is_tensor(rv) else rv
+
+
+def sch_encode(tb_bits: torch.Tensor, cfg: SCHConfig, rv) -> torch.Tensor:
     """TB payload [..., A] -> rate-matched codeword bits [..., G]."""
     assert tb_bits.shape[-1] == cfg.a
+    rv = _rv_per_cb(rv)
     b = crc_attach(tb_bits, cfg.tb_crc)
     code = ldpc.lifted_code(cfg.bg, cfg.z)
     per_cb = cfg.k_prime - (24 if cfg.cb_crc else 0)
@@ -159,18 +168,34 @@ def sch_encode(tb_bits: torch.Tensor, cfg: SCHConfig, rv: int) -> torch.Tensor:
 def sch_decode(
     llrs: torch.Tensor,
     cfg: SCHConfig,
-    rv: int,
+    rv,
     soft_buffers: torch.Tensor | None = None,
     n_iter: int = 6,
+    schedule: str = "auto",
     impl: str | None = None,
 ):
     """Rate-matched LLRs [..., G] -> (tb_bits [..., A], tb_crc_ok [...] bool,
-    soft_buffers [..., C, Ncb]). Layered schedule (the reference's default);
-    impl selects the decoder implementation (see decode_layered).
-    LLR sign convention: positive = bit 0."""
+    soft_buffers [..., C, Ncb]).
+
+    soft_buffers: [..., C, Ncb] HARQ combining state with the LLRs' leading
+    axes, or [C, Ncb] shared by all of them (None = fresh process).
+    LLR sign convention: positive = bit 0.
+
+    schedule:
+      'auto'/'layered' (default): layered normalized min-sum at n_iter, the
+        reference's schedule. Every code block of every run and of every
+        leading index goes through ONE decode_layered call (codewords decode
+        independently); impl selects its implementation (see decode_layered).
+      'flooding': fully-parallel flooding at n_iter with parity early exit
+        (pass 2*n_iter for layered-equivalent BLER). One decode per
+        rate-match run, and every leading index keeps its own stop, as the
+        reference's per-run call under a vmap over grants: runs and grants
+        are NOT merged into one exit decision, which would change the
+        iteration count and with it the posterior."""
     code_n = (66 if cfg.bg == 1 else 50) * cfg.z
     if soft_buffers is None:
         soft_buffers = llrs.new_zeros((cfg.c, code_n), dtype=torch.float32)
+    rv = _rv_per_cb(rv)
     offs = 0
     full_runs, buf_runs = [], []
     for st, cnt, e_bits in _cb_groups(cfg):
@@ -181,11 +206,16 @@ def sch_decode(
                                       cfg.qm, soft_buffer=soft_buffers[..., st:st + cnt, :])
         full_runs.append(full)
         buf_runs.append(buf)
-    # every code block of every run (and every link) goes through ONE decode:
-    # codewords decode independently, so this equals the reference's per-run
-    # decode bit for bit and gives the kernel all C*links codewords at once
-    hard, cb_ok = decode_layered(torch.cat(full_runs, dim=-2), cfg.bg, cfg.z,
-                                 n_iter=n_iter, impl=impl)
+    if schedule in ("auto", "layered"):
+        hard, cb_ok = decode_layered(torch.cat(full_runs, dim=-2), cfg.bg, cfg.z,
+                                     n_iter=n_iter, impl=impl)
+    elif schedule == "flooding":
+        outs = [ldpc._decode_flooding(full, cfg.bg, cfg.z, n_iter, 0.75, True, exit_dims=1)
+                for full in full_runs]
+        hard = torch.cat([o[0] for o in outs], dim=-2)
+        cb_ok = torch.cat([o[1] for o in outs], dim=-1)
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
     hard = hard[..., : cfg.k_prime]  # [..., C, K']
     if cfg.cb_crc:
         cb_ok = cb_ok & crc_check(hard, "24B")
@@ -196,3 +226,6 @@ def sch_decode(
     tb_ok = tb_ok & torch.all(cb_ok, dim=-1)
     return tb, tb_ok, torch.cat(buf_runs, dim=-2)
 
+
+# RV sequence on HARQ retransmission (updateHARQProcess.m:16-32)
+RV_SEQUENCE = (0, 3, 2, 1)

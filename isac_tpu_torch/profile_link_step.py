@@ -62,13 +62,14 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def summarize_profile(prof, range_prefix: str, n_steps: int, wall_us: float):
+def summarize_profile(prof, range_prefix, n_steps: int, wall_us: float):
     """(profile dict, ranges per step) of a torch.profiler run over `n_steps`
     steps that took `wall_us` on the host: the device's busy share of the
     window, kernels launched per step, device ms and launches per step by
     kernel family (`kernel_family`), the 15 kernels with the most device
     time, and per `record_function` range whose name starts with
-    `range_prefix` its host ms and device ms (first to last kernel) per step."""
+    `range_prefix` (a string or a tuple of them) its host ms and device ms
+    (first to last kernel) per step."""
     kern, ranges, families = {}, {}, {}
     n_ranges = 0
     for ev in prof.events():

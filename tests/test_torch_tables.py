@@ -176,7 +176,8 @@ def test_port_imports_neither_jax_nor_isac_tpu():
     # a sub-package without __init__.py would silently drop out of the walk
     for m in ("parallel.links", "example", "config.params", "config.scenarios", "ops.ofdm",
               "ops.dft", "ops.sensing.doa", "ops.sensing.echo", "sim.sensing", "utils.windows",
-              "profile_sensing"):
+              "profile_sensing", "ops.csi", "ops.csirs", "ops.srs", "ops.pathloss",
+              "phy.passthrough", "profile_link_loop"):
         assert f"isac_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
