@@ -59,6 +59,25 @@ gives a non-zero exit code and no final result line):
      6c the flooding decoder: sch_decode(schedule="flooding") on the card
      against the CPU (TB bits and flags equal) and, at 2 x n_iter, against the
      layered kernel at n_iter on the same LLRs (the decoded TBs equal).
+  7. the per-cell system-level engine (sim/cell.py CellSimulator through
+     example_cell and run()):
+     7a the reference's fixed-seed single link at 51 PRB / nfft 1024 with
+     traces, on the card and on the CPU in this process: both reproduce
+     tests/golden/single_link_trace.json (slot, dir, UE, MCS, PRBs, TBS, CRC,
+     rv exact; SINR within 0.1 dB) and agree with each other; then the
+     single link at 24 PRB / nfft 512 with the gNB at 10 dBm and the UE at
+     -35 dBm, whose failed blocks are retransmitted on combined soft buffers
+     in both directions: card and CPU traces agree, and a card checkpoint at
+     slot 10 with soft buffers waiting resumes to the straight run;
+     7b the shipped open_street_map_city at full width (273 PRB, nfft 4096,
+     16 gNB ports, 5 UEs, one target, one frame): one untimed frame whose
+     every decoder input goes through the layered kernel and its plain
+     version (bit-equal posteriors), then three frames on fresh simulators
+     with the same seed, each timed (cell_slot_ms, cell_sensing_ms, host
+     clock after synchronize) and held to the JAX engine's numbers at the
+     same configuration (CELL_EXPECT): per-UE TB counts and CRC failures
+     equal, throughputs within 1%, the same detections within 0.5 m, 0.5
+     m/s, 0.5 deg; kernel launches = sch_receive_batch calls.
 Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 
@@ -881,6 +900,230 @@ def phase_flooding(dev):
           f"first call on the card {flood_ms:.1f} ms by the host clock", flush=True)
 
 
+# What the JAX engine (isac_tpu/sim/cell.py) does on the shipped
+# open_street_map_city at full width, seed 0, on its CPU backend:
+# `python tools/cell_reference_constants.py` (jax 0.9.0; PERF.md section 4).
+# Its frame holds no retransmission (every CRC passes).
+CELL_EXPECT = {
+    "n_rb": 273, "nfft": 4096, "n_tx": 16, "n_ues": 5,
+    "dl_tbs": [10, 12, 10, 10, 10], "dl_crc_fail": [0, 0, 0, 0, 0],
+    "ul_tbs": [4, 4, 4, 4, 4], "ul_crc_fail": [0, 0, 0, 0, 0],
+    "dl_mbps": [49.4808, 49.02, 49.4808, 50.2008, 48.3528],
+    "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+    "detections": 1, "rngEst": [86.6099624633789], "velEst": [9.12436580657959],
+    "aziEst": [-22.0],
+}
+CELL_THR_RTOL = 0.01
+CELL_EST_TOL = {"rngEst": 0.5, "velEst": 0.5, "aziEst": 0.5}  # m, m/s, deg
+CELL_READINGS = 3
+GOLDEN_SINR_TOL_DB = 0.1
+
+
+def _trace_key(t):
+    return tuple(t[k] for k in ("slot", "dir", "ue", "mcs", "n_prb", "tbs", "crc", "rv"))
+
+
+def phase_cell_golden(dev):
+    """Phase 7a: the fixed-seed single link on the card and on the CPU, both
+    against the committed golden trace and against each other."""
+    from dataclasses import replace
+    from pathlib import Path
+
+    from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
+    from isac_tpu_torch.config.scenarios import single_link
+    from isac_tpu_torch.sim.cell import CellSimulator
+
+    golden = json.loads((Path(__file__).resolve().parent / "tests" / "golden"
+                         / "single_link_trace.json").read_text())
+    cell = assign_cell_parameters(single_link(SimulationParameters()))[0]
+    cell = replace(cell, log=replace(cell.log, enable_traces=True))
+    traces = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        sim = CellSimulator(cell, seed=golden["seed"], n_rb_override=golden["n_rb"],
+                            nfft_override=golden["nfft"], device=d)
+        sim.run()
+        tr = sim.metrics.trace
+        if len(tr) != len(golden["trace"]):
+            raise AssertionError(f"cell golden ({name}): {len(tr)} trace rows, expected "
+                                 f"{len(golden['trace'])}")
+        for got, exp in zip(tr, golden["trace"]):
+            if _trace_key(got) != _trace_key(exp) or not (
+                    abs(float(got["sinr_db"]) - exp["sinr_db"]) < GOLDEN_SINR_TOL_DB):
+                raise AssertionError(f"cell golden ({name}): {got} vs {exp}")
+        traces[name] = tr
+    d_sinr = max(abs(float(a["sinr_db"]) - float(b["sinr_db"]))
+                 for a, b in zip(traces["cuda"], traces["cpu"]))
+    if not ([_trace_key(t) for t in traces["cuda"]] == [_trace_key(t) for t in traces["cpu"]]
+            and d_sinr <= LOOP_SINR_ATOL_DB):
+        raise AssertionError(f"cell golden: card and CPU traces differ (max |d sinr| {d_sinr})")
+    print(f"cell golden single link 51 PRB / nfft 1024 / seed {golden['seed']}: card and CPU "
+          f"reproduce the {len(golden['trace'])}-row golden trace (integer fields exact, SINR "
+          f"within {GOLDEN_SINR_TOL_DB} dB); card vs CPU max |d sinr_db| {d_sinr:.3g} dB",
+          flush=True)
+
+
+def phase_cell_harq(dev):
+    """Phase 7a, second part: the single link at 24 PRB / nfft 512 with the gNB
+    at 10 dBm and the UE at -35 dBm, so that blocks fail in both directions
+    and their rv-3 retransmissions pass on the combined soft buffers. Card and
+    CPU traces agree, and on the card a checkpoint at slot 10 (soft buffers
+    waiting, pickled as numpy) resumes to the straight run."""
+    import pickle
+    from dataclasses import replace
+
+    from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
+    from isac_tpu_torch.config.scenarios import single_link
+    from isac_tpu_torch.sim.cell import CellSimulator
+
+    cell = assign_cell_parameters(single_link(SimulationParameters()))[0]
+    cell = replace(cell, log=replace(cell.log, enable_traces=True),
+                   gnb=replace(cell.gnb, tx_power_dbm=10.0), ue=replace(cell.ue, tx_power_dbm=-35.0))
+
+    def engine(d):
+        return CellSimulator(cell, n_rb_override=24, nfft_override=512, device=d)
+
+    traces = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        sim = engine(d)
+        sim.run()
+        traces[name] = sim.metrics.trace
+    tr = traces["cuda"]
+    for d in ("DL", "UL"):
+        if not any(t["rv"] != 0 and t["crc"] for t in tr if t["dir"] == d):
+            raise AssertionError(f"cell HARQ: no passing {d} retransmission in {tr}")
+    d_sinr = max(abs(float(a["sinr_db"]) - float(b["sinr_db"]))
+                 for a, b in zip(tr, traces["cpu"]))
+    if not (len(tr) == len(traces["cpu"])
+            and [_trace_key(t) for t in tr] == [_trace_key(t) for t in traces["cpu"]]
+            and d_sinr <= LOOP_SINR_ATOL_DB):
+        raise AssertionError(f"cell HARQ: card and CPU traces differ (max |d sinr| {d_sinr})")
+    first = engine(dev)
+    first.run(stop_slot=10, finalize=False)
+    n_bufs = len(first.rx_soft_bufs)
+    if n_bufs == 0:
+        raise AssertionError("cell HARQ: no soft buffer waits at the checkpoint")
+    second = engine(dev)
+    second.run(start_slot=second.restore(pickle.loads(pickle.dumps(first.checkpoint(10)))))
+    if second.metrics.trace != tr:
+        raise AssertionError("cell HARQ: the resumed card run differs from the straight one")
+    n_retx = sum(1 for t in tr if t["rv"] != 0)
+    print(f"cell HARQ single link 24 PRB: {n_retx} retransmissions after "
+          f"{sum(1 for t in tr if not t['crc'])} failed blocks, card and CPU traces equal "
+          f"(max |d sinr_db| {d_sinr:.3g} dB); checkpoint at slot 10 with {n_bufs} soft "
+          f"buffers resumed to the straight card run", flush=True)
+
+
+def _cell_outcome(sim, res):
+    """Per-UE counters, throughputs and detections of one engine run."""
+    import numpy as np
+
+    comm, est = res["communication"], res["sensing"]["estimates"]
+    valid = est["valid"].cpu().numpy()
+    out = {
+        "dl_tbs": [c.blk_total for c in sim.metrics.dl],
+        "dl_crc_fail": [c.blk_err for c in sim.metrics.dl],
+        "ul_tbs": [c.blk_total for c in sim.metrics.ul],
+        "ul_crc_fail": [c.blk_err for c in sim.metrics.ul],
+        "dl_mbps": [float(x) for x in comm["ueDLThroughputMbps"]],
+        "ul_mbps": [float(x) for x in comm["ueULThroughputMbps"]],
+        "detections": int(valid.sum()),
+    }
+    for k in CELL_EST_TOL:
+        v = est[k].cpu().numpy().astype(np.float64)
+        out[k] = [float(x) for x in v[np.isfinite(v)]]
+    return out
+
+
+def _check_cell(out, what):
+    """The JAX engine's outcome (CELL_EXPECT), or AssertionError."""
+    import numpy as np
+
+    exp = CELL_EXPECT
+    for k in ("dl_tbs", "dl_crc_fail", "ul_tbs", "ul_crc_fail", "detections"):
+        if out[k] != exp[k]:
+            raise AssertionError(f"{what}: {k} {out[k]}, the JAX engine's {exp[k]}")
+    for k in ("dl_mbps", "ul_mbps"):
+        if not np.allclose(out[k], exp[k], rtol=CELL_THR_RTOL, atol=0):
+            raise AssertionError(f"{what}: {k} {out[k]}, the JAX engine's {exp[k]}")
+    for k, tol in CELL_EST_TOL.items():
+        if len(out[k]) != len(exp[k]) or not np.all(np.abs(np.subtract(out[k], exp[k])) <= tol):
+            raise AssertionError(f"{what}: {k} {out[k]}, the JAX engine's {exp[k]} (tol {tol})")
+
+
+def phase_cell_full(dev):
+    """Phase 7b: the shipped scenario at full width through the engine's
+    public entry points. Returns (result dict, launches of one frame, max
+    kernel error)."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.example import example_cell
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+
+    t0 = time.perf_counter()
+    sim = example_cell(device=dev, traces=True)
+    if (sim.n_rb, sim.info.nfft, sim.n_tx, sim.n_ues) != tuple(
+            CELL_EXPECT[k] for k in ("n_rb", "nfft", "n_tx", "n_ues")):
+        raise AssertionError(f"cell: {sim.n_rb} PRB, nfft {sim.info.nfft}, {sim.n_tx} ports, "
+                             f"{sim.n_ues} UEs")
+    with _recording_layered() as seen:
+        res = sim.run()
+    retx = sum(1 for t in sim.metrics.trace if t["rv"] != 0)
+    _check_cell(_cell_outcome(sim, res), "cell untimed frame")
+    kernel_err, shapes = _kernel_equals_plain(seen, "the 273-PRB cell frame's LLRs")
+    print(f"cell 273 PRB untimed frame: kernel bit-equal to its plain version on all {len(seen)} "
+          f"decoder inputs of {sim.rx_calls} receives, (bg, z, codewords) {shapes}; "
+          + ("the frame holds no retransmission (every CRC passes)" if retx == 0 else
+             f"{retx} of the frame's transmissions are retransmissions"), flush=True)
+    del seen
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reads = []
+    for _ in range(CELL_READINGS):
+        sim = example_cell(device=dev)
+        torch.cuda.synchronize()
+        decode_layered_cuda.launches = 0
+        t1 = time.perf_counter()
+        sim.run(finalize=False)
+        torch.cuda.synchronize()
+        slot_ms = (time.perf_counter() - t1) * 1e3 / sim.num_slots
+        launches = decode_layered_cuda.launches
+        rx_calls = sim.rx_calls
+        res = sim.finalize(sensing=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res["sensing"] = sim.run_sensing()
+        torch.cuda.synchronize()
+        sensing_ms = (time.perf_counter() - t1) * 1e3
+        if launches != rx_calls or rx_calls <= 0:
+            raise AssertionError(f"cell: {launches} kernel launches for {rx_calls} "
+                                 f"sch_receive_batch calls")
+        out = _cell_outcome(sim, res)
+        out["dl_bler"] = [float(x) for x in res["communication"]["ueDLBLER"]]
+        out["ul_bler"] = [float(x) for x in res["communication"]["ueULBLER"]]
+        _check_cell(out, f"cell timed frame {len(reads)}")
+        reads.append({"cell_slot_ms": slot_ms, "cell_sensing_ms": sensing_ms,
+                      "ldpc_layered_launches": launches, "sch_receive_batch_calls": rx_calls,
+                      **out})
+        print(f"cell 273 PRB timed frame {len(reads) - 1}: " + json.dumps(reads[-1]), flush=True)
+    mid = CELL_READINGS // 2
+    result = {
+        "cell_slot_ms": sorted(r["cell_slot_ms"] for r in reads)[mid],
+        "cell_sensing_ms": sorted(r["cell_sensing_ms"] for r in reads)[mid],
+        "cell_slot_ms_readings": [r["cell_slot_ms"] for r in reads],
+        "cell_sensing_ms_readings": [r["cell_sensing_ms"] for r in reads],
+        "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
+        "sch_receive_batch_calls_per_frame": [r["sch_receive_batch_calls"] for r in reads],
+        "slots": sim.num_slots, "setup_s": setup_s,
+        "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+        "est_err_vs_jax": {k: max(float(np.max(np.abs(np.subtract(r[k], CELL_EXPECT[k]))))
+                                  for r in reads) for k in CELL_EST_TOL},
+    }
+    print("cell 273 PRB x16 ports x5 UEs, one frame (open_street_map_city as shipped), "
+          "medians: " + json.dumps(result), flush=True)
+    return result, reads[0]["ldpc_layered_launches"], kernel_err
+
+
 def main() -> int:
     import torch
 
@@ -898,7 +1141,7 @@ def main() -> int:
           flush=True)
 
     # phase 1: build the path's one kernel source
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     cuda_build.build("ldpc_layered")
     secs = time.perf_counter() - t0
     log = cuda_build.BUILD_LOG.get("ldpc_layered", "(already built)")
@@ -928,13 +1171,24 @@ def main() -> int:
     max_err = max(max_err, loop_err)
     phase_flooding(dev)
 
+    # phase 7: the per-cell engine (its receives launch the same kernel)
+    t7 = time.perf_counter()
+    phase_cell_golden(dev)
+    phase_cell_harq(dev)
+    cell_res, cell_launches, cell_err = phase_cell_full(dev)
+    max_err = max(max_err, cell_err)
+    t_end = time.perf_counter()
+    print(f"script seconds after import: {t_end - t_start:.1f} in all, phases 1-6 "
+          f"{t7 - t_start:.1f}, phase 7 {t_end - t7:.1f}", flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "ldpc_layered", "route": "cuda",
         "source": "isac_tpu_torch/csrc/ldpc_layered.cu",
         "replaces": "isac_tpu/ops/ldpc_layered.py:169",
         "launches": res["ldpc_layered_launches"],
         "launches_by_path": {"link_step": res["ldpc_layered_launches"],
-                             "dl_loop": loop_launches["dl"], "ul_loop": loop_launches["ul"]},
+                             "dl_loop": loop_launches["dl"], "ul_loop": loop_launches["ul"],
+                             "cell": cell_launches},
         "max_abs_err": max_err,
         "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],

@@ -13,6 +13,9 @@ the same numbers.
 `example_link_loop`: one closed link-adaptation loop per direction through
 the public per-grant functions (CSI-RS / SRS measurement, RI/PMI/CQI/TPMI
 selection, batched PDSCH / PUSCH with HARQ retransmissions); see LinkLoop.
+
+`example_cell`: the per-cell system-level engine (sim/cell.py CellSimulator)
+on the reference's shipped scenario, open_street_map_city.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from isac_tpu_torch.config.params import ULA, GNBParams
+from dataclasses import replace
+
+from isac_tpu_torch.config.params import ULA, GNBParams, SimulationParameters, assign_cell_parameters
+from isac_tpu_torch.config.scenarios import open_street_map_city
 from isac_tpu_torch.mac.tables import cqi_to_mcs
 from isac_tpu_torch.ops.cdl import build_cdl_link, subcarrier_freqs
 from isac_tpu_torch.ops.csi import (
@@ -48,6 +54,7 @@ from isac_tpu_torch.phy.chains import (
     sch_receive_batch,
     sch_transmit_batch,
 )
+from isac_tpu_torch.sim.cell import CellSimulator
 from isac_tpu_torch.sim.sensing import make_sensing_chain
 from isac_tpu_torch.utils.device import resolve_device
 
@@ -425,3 +432,18 @@ def example_sensing(num_slots=20, seed=0, device=None, gnb=None,
     )
     grid_dev = torch.as_tensor(grid.astype(np.complex64), device=dev) * amp
     return chain, params, (grid_dev,)
+
+
+def example_cell(n_rb=None, nfft=None, traces=False, device=None):
+    """The engine on the reference's shipped scenario (config/scenarios.py
+    open_street_map_city): 273 PRB at SCS 30 kHz (100 MHz, nfft 4096), a
+    16-port gNB (8x2-pol ULA, 44 dBm), 5 two-antenna UEs, one target, PF
+    scheduling, On-Off traffic at 40 / 10 Mbps, CDL-D, UMa pathloss, DDDSU,
+    one frame of 20 slots, sensing with MUSIC DoA. n_rb / nfft cut the carrier
+    (tests run 24 PRB / 512 on the CPU); traces=True records the per-slot
+    trace. Returns a CellSimulator of seed 0 on `device` (None = the card);
+    `.run()` simulates the frame and returns the KPIs, logs and sensing result."""
+    cell = assign_cell_parameters(open_street_map_city(SimulationParameters()))[0]
+    if traces:
+        cell = replace(cell, log=replace(cell.log, enable_traces=True))
+    return CellSimulator(cell, n_rb_override=n_rb, nfft_override=nfft, device=device)

@@ -177,7 +177,9 @@ def test_port_imports_neither_jax_nor_isac_tpu():
     for m in ("parallel.links", "example", "config.params", "config.scenarios", "ops.ofdm",
               "ops.dft", "ops.sensing.doa", "ops.sensing.echo", "sim.sensing", "utils.windows",
               "profile_sensing", "ops.csi", "ops.csirs", "ops.srs", "ops.pathloss",
-              "phy.passthrough", "profile_link_loop"):
+              "phy.passthrough", "profile_link_loop", "sim.cell", "mac.harq", "mac.lcp",
+              "mac.pdu", "mac.scheduler", "rlc.um", "rlc.am", "app.traffic", "metrics.kpi",
+              "metrics.logger", "utils.prng", "profile_cell"):
         assert f"isac_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
