@@ -78,6 +78,25 @@ gives a non-zero exit code and no final result line):
      same configuration (CELL_EXPECT): per-UE TB counts and CRC failures
      equal, throughputs within 1%, the same detections within 0.5 m, 0.5
      m/s, 0.5 deg; kernel launches = sch_receive_batch calls.
+  8. the top-level entry and the lockstep network (sim/network.py through
+     example_network / simulate, topology/ for the city's line of sight):
+     8a two co-channel cells of multi_cell at 24 PRB / nfft 512 with DL + UL
+     interference and traces, on the card and on the CPU in this process:
+     per-cell trace integers (slot, dir, UE, MCS, PRBs, TBS, CRC, rv) equal,
+     SINR within 0.05 dB, the DL cross term non-zero in some slot of each
+     cell; 8b simulate(open_street_map_city) as shipped (the README's quick
+     start: 273 PRB, 16 ports, 5 UEs of which the city leaves one in LoS, one
+     frame, sensing on), held to the JAX package's numbers (CITY_EXPECT): per-UE
+     BLER exact, throughputs within 1%, the detection within 0.5 m / 0.5 m/s
+     / 0.5 deg; 8c two co-channel cells at 273 PRB (example_network): one
+     untimed frame with sensing whose every decoder input goes through the
+     layered kernel and its plain version (bit-equal posteriors), held to the
+     JAX network (NETWORK_EXPECT: per-UE TB counts and CRC failures exact,
+     throughputs within 1%, the detections as 8b), then three frames without
+     sensing on fresh runners of the same seed, each timed (network_slot_ms,
+     network_cell_slots_per_s; host clock after synchronize), held to the
+     same counts, with kernel launches = sch_receive_batch calls, peak memory
+     and the runner's host ms per slot of each network.* stage.
 Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 
@@ -1013,41 +1032,54 @@ def phase_cell_harq(dev):
           f"buffers resumed to the straight card run", flush=True)
 
 
-def _cell_outcome(sim, res):
-    """Per-UE counters, throughputs and detections of one engine run."""
+def _result_outcome(res):
+    """What a result dict carries: per-UE BLER and throughputs, and the
+    detections when it holds a sensing result."""
     import numpy as np
 
-    comm, est = res["communication"], res["sensing"]["estimates"]
-    valid = est["valid"].cpu().numpy()
-    out = {
-        "dl_tbs": [c.blk_total for c in sim.metrics.dl],
-        "dl_crc_fail": [c.blk_err for c in sim.metrics.dl],
-        "ul_tbs": [c.blk_total for c in sim.metrics.ul],
-        "ul_crc_fail": [c.blk_err for c in sim.metrics.ul],
-        "dl_mbps": [float(x) for x in comm["ueDLThroughputMbps"]],
-        "ul_mbps": [float(x) for x in comm["ueULThroughputMbps"]],
-        "detections": int(valid.sum()),
-    }
-    for k in CELL_EST_TOL:
-        v = est[k].cpu().numpy().astype(np.float64)
-        out[k] = [float(x) for x in v[np.isfinite(v)]]
+    comm = res["communication"]
+    out = {k: [float(x) for x in comm[key]] for k, key in (
+        ("dl_bler", "ueDLBLER"), ("ul_bler", "ueULBLER"),
+        ("dl_mbps", "ueDLThroughputMbps"), ("ul_mbps", "ueULThroughputMbps"))}
+    if res["sensing"] is not None:
+        est = res["sensing"]["estimates"]
+        out["detections"] = int(est["valid"].sum())
+        for k in CELL_EST_TOL:
+            v = est[k].cpu().numpy().astype(np.float64)
+            out[k] = [float(x) for x in v[np.isfinite(v)]]
     return out
 
 
-def _check_cell(out, what):
-    """The JAX engine's outcome (CELL_EXPECT), or AssertionError."""
+def _cell_outcome(sim, res):
+    """Per-UE counters of one engine run, and what its result dict carries."""
+    return {"dl_tbs": [c.blk_total for c in sim.metrics.dl],
+            "dl_crc_fail": [c.blk_err for c in sim.metrics.dl],
+            "ul_tbs": [c.blk_total for c in sim.metrics.ul],
+            "ul_crc_fail": [c.blk_err for c in sim.metrics.ul],
+            **_result_outcome(res)}
+
+
+def _check_against(out, exp, what):
+    """Every outcome that `exp` states, held against `out`, or AssertionError:
+    counts, BLERs and detections exact, throughputs within CELL_THR_RTOL,
+    estimates within CELL_EST_TOL."""
     import numpy as np
 
-    exp = CELL_EXPECT
-    for k in ("dl_tbs", "dl_crc_fail", "ul_tbs", "ul_crc_fail", "detections"):
-        if out[k] != exp[k]:
-            raise AssertionError(f"{what}: {k} {out[k]}, the JAX engine's {exp[k]}")
-    for k in ("dl_mbps", "ul_mbps"):
-        if not np.allclose(out[k], exp[k], rtol=CELL_THR_RTOL, atol=0):
-            raise AssertionError(f"{what}: {k} {out[k]}, the JAX engine's {exp[k]}")
-    for k, tol in CELL_EST_TOL.items():
-        if len(out[k]) != len(exp[k]) or not np.all(np.abs(np.subtract(out[k], exp[k])) <= tol):
-            raise AssertionError(f"{what}: {k} {out[k]}, the JAX engine's {exp[k]} (tol {tol})")
+    for k, want in exp.items():
+        if k in ("n_rb", "nfft", "n_tx", "n_ues", "ue_los"):  # configuration
+            continue
+        if k not in out:
+            raise AssertionError(f"{what}: the run gives no {k} to hold against {want}")
+        v = out[k]
+        if k in ("dl_mbps", "ul_mbps"):
+            ok = np.allclose(v, want, rtol=CELL_THR_RTOL, atol=0)
+        elif k in CELL_EST_TOL:
+            ok = len(v) == len(want) and bool(np.all(np.abs(np.subtract(v, want))
+                                                     <= CELL_EST_TOL[k]))
+        else:
+            ok = v == want
+        if not ok:
+            raise AssertionError(f"{what}: {k} {v}, the JAX package's {want}")
 
 
 def phase_cell_full(dev):
@@ -1069,7 +1101,7 @@ def phase_cell_full(dev):
     with _recording_layered() as seen:
         res = sim.run()
     retx = sum(1 for t in sim.metrics.trace if t["rv"] != 0)
-    _check_cell(_cell_outcome(sim, res), "cell untimed frame")
+    _check_against(_cell_outcome(sim, res), CELL_EXPECT, "cell untimed frame")
     kernel_err, shapes = _kernel_equals_plain(seen, "the 273-PRB cell frame's LLRs")
     print(f"cell 273 PRB untimed frame: kernel bit-equal to its plain version on all {len(seen)} "
           f"decoder inputs of {sim.rx_calls} receives, (bg, z, codewords) {shapes}; "
@@ -1099,9 +1131,7 @@ def phase_cell_full(dev):
             raise AssertionError(f"cell: {launches} kernel launches for {rx_calls} "
                                  f"sch_receive_batch calls")
         out = _cell_outcome(sim, res)
-        out["dl_bler"] = [float(x) for x in res["communication"]["ueDLBLER"]]
-        out["ul_bler"] = [float(x) for x in res["communication"]["ueULBLER"]]
-        _check_cell(out, f"cell timed frame {len(reads)}")
+        _check_against(out, CELL_EXPECT, f"cell timed frame {len(reads)}")
         reads.append({"cell_slot_ms": slot_ms, "cell_sensing_ms": sensing_ms,
                       "ldpc_layered_launches": launches, "sch_receive_batch_calls": rx_calls,
                       **out})
@@ -1120,6 +1150,196 @@ def phase_cell_full(dev):
                                   for r in reads) for k in CELL_EST_TOL},
     }
     print("cell 273 PRB x16 ports x5 UEs, one frame (open_street_map_city as shipped), "
+          "medians: " + json.dumps(result), flush=True)
+    return result, reads[0]["ldpc_layered_launches"], kernel_err
+
+
+# What the JAX package does at the top-level entry and in the 2-cell network
+# at full width, seed 0, on its CPU backend:
+# `PYTHONPATH=. python tools/network_reference_constants.py` (jax 0.9.0;
+# PERF.md section 4). The city leaves 4 of cell 1's 5 UEs (and every cross
+# link) in NLoS.
+CITY_EXPECT = {
+    "n_rb": 273, "nfft": 4096, "n_tx": 16, "n_ues": 5,
+    "ue_los": [False, False, False, False, True],
+    "dl_bler": [0.0, 0.0, 0.0, 0.1, 0.0], "ul_bler": [0.0, 0.0, 0.0, 0.0, 0.0],
+    "dl_mbps": [48.6592, 48.6568, 46.512, 49.9952, 48.1472],
+    "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+    "detections": 1, "rngEst": [86.6099624633789], "velEst": [9.12436580657959],
+    "aziEst": [-22.0],
+}
+NETWORK_EXPECT = {
+    "num_cells": 2, "n_rb": 273, "nfft": 4096,
+    "cross_los": {(0, 1): [False] * 5, (1, 0): [False] * 5},
+    "cells": [
+        {"ue_los": [False, False, False, False, True],
+         "dl_tbs": [10, 11, 10, 11, 10], "dl_crc_fail": [2, 3, 1, 3, 0],
+         "ul_tbs": [4, 4, 4, 4, 4], "ul_crc_fail": [0, 0, 0, 0, 0],
+         "dl_mbps": [49.8864, 51.6304, 46.0552, 52.1568, 48.1472],
+         "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+         "detections": 1, "rngEst": [86.6099624633789], "velEst": [9.12436580657959],
+         "aziEst": [-22.0]},
+        {"ue_los": [False, True, True, True, False],
+         "dl_tbs": [11, 12, 10, 10, 11], "dl_crc_fail": [2, 0, 0, 0, 3],
+         "ul_tbs": [4, 4, 4, 4, 4], "ul_crc_fail": [0, 0, 0, 0, 0],
+         "dl_mbps": [51.9384, 49.02, 49.4808, 50.2008, 54.1912],
+         "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+         "detections": 1, "rngEst": [123.20572662353516], "velEst": [4.562182903289795],
+         "aziEst": [18.0]},
+    ],
+}
+NETWORK_READINGS = 3
+
+
+def _network_outcome(runner, results):
+    """_cell_outcome of every cell of a network run."""
+    return [_cell_outcome(sim, res) for sim, res in zip(runner.sims, results)]
+
+
+def phase_network_parity(dev):
+    """Phase 8a: two co-channel cells at 24 PRB, card against CPU, with the
+    DL cross term seen non-zero in each cell."""
+    from isac_tpu_torch.example import example_network
+
+    traces, ext_slots = {}, {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        runner = example_network(n_rb=24, nfft=512, traces=True, device=d)
+        seen = [0] * len(runner.sims)
+        dl_ext = runner._dl_ext
+
+        def counting(cell, slot, states, dl_ext=dl_ext, seen=seen):
+            ext = dl_ext(cell, slot, states)
+            if ext is not None and bool(ext.abs().amax() > 0):
+                seen[cell] += 1
+            return ext
+
+        runner._dl_ext = counting
+        runner.run()
+        traces[name] = [sim.metrics.trace for sim in runner.sims]
+        ext_slots[name] = seen
+    d_sinr = 0.0
+    for c, (tg, tc) in enumerate(zip(traces["cuda"], traces["cpu"])):
+        if not (len(tg) == len(tc) > 0
+                and [_trace_key(t) for t in tg] == [_trace_key(t) for t in tc]):
+            raise AssertionError(f"network 24 PRB cell {c}: card and CPU traces differ")
+        d_sinr = max([d_sinr] + [abs(float(a["sinr_db"]) - float(b["sinr_db"]))
+                                 for a, b in zip(tg, tc)])
+    if not d_sinr <= LOOP_SINR_ATOL_DB:
+        raise AssertionError(f"network 24 PRB: card and CPU SINR differ by {d_sinr} dB")
+    if not all(n > 0 for n in ext_slots["cuda"]):
+        raise AssertionError(f"network 24 PRB: DL cross term non-zero in {ext_slots['cuda']} "
+                             f"slots per cell")
+    fails = [sum(1 for t in tr if not t["crc"]) for tr in traces["cuda"]]
+    print(f"network 24 PRB x2 cells: card and CPU traces equal ({[len(t) for t in traces['cuda']]} "
+          f"rows, failed blocks {fails}), max |d sinr_db| {d_sinr:.3g} dB; DL cross term "
+          f"non-zero in {ext_slots['cuda']} slots per cell", flush=True)
+
+
+def phase_city_entry(dev):
+    """Phase 8b: the README's quick start, simulate(open_street_map_city),
+    at full width on the card, against the JAX package's numbers."""
+    import torch
+
+    from isac_tpu_torch.api import simulate
+    from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
+    from isac_tpu_torch.config.scenarios import open_street_map_city
+    from isac_tpu_torch.sim.network import resolve_los
+
+    sim = open_street_map_city(SimulationParameters())
+    cell = resolve_los(assign_cell_parameters(sim), sim)[0]
+    if cell.ue_los.tolist() != CITY_EXPECT["ue_los"]:
+        raise AssertionError(f"city entry: UE LoS {cell.ue_los.tolist()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = simulate(open_street_map_city, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = _result_outcome(res["cells"][0])
+    _check_against(out, CITY_EXPECT, "city entry")
+    print(f"city entry simulate(open_street_map_city) 273 PRB, UE LoS {CITY_EXPECT['ue_los']}: "
+          f"{secs:.1f} s with sensing, the JAX package's numbers: " + json.dumps(out), flush=True)
+
+
+def phase_network_full(dev):
+    """Phase 8c: two co-channel cells at 273 PRB. Returns (result dict,
+    launches of the first timed frame, max kernel error)."""
+    import torch
+
+    from isac_tpu_torch.example import example_network
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+
+    t0 = time.perf_counter()
+    runner = example_network(device=dev, traces=True)
+    s0 = runner.sims[0]
+    if (len(runner.sims), s0.n_rb, s0.info.nfft) != tuple(
+            NETWORK_EXPECT[k] for k in ("num_cells", "n_rb", "nfft")):
+        raise AssertionError(f"network: {len(runner.sims)} cells, {s0.n_rb} PRB")
+    for sim, exp in zip(runner.sims, NETWORK_EXPECT["cells"]):
+        if sim.cell.ue_los.tolist() != exp["ue_los"]:
+            raise AssertionError(f"network: UE LoS {sim.cell.ue_los.tolist()}")
+    if {k: v.tolist() for k, v in runner.cross_los.items()} != NETWORK_EXPECT["cross_los"]:
+        raise AssertionError(f"network: cross LoS {runner.cross_los}")
+    torch.cuda.reset_peak_memory_stats()
+    with _recording_layered() as seen:
+        results = runner.run()
+    untimed_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    outs = _network_outcome(runner, results)
+    for c, (out, exp) in enumerate(zip(outs, NETWORK_EXPECT["cells"])):
+        _check_against(out, exp, f"network untimed frame cell {c}")
+    kernel_err, shapes = _kernel_equals_plain(seen, "the 273-PRB network frame's LLRs")
+    retx = [sum(1 for t in sim.metrics.trace if t["rv"] != 0) for sim in runner.sims]
+    print(f"network 273 PRB x2 cells untimed frame (sensing on): the JAX network's counts "
+          f"(failed DL blocks {[sum(o['dl_crc_fail']) for o in outs]}, retransmissions {retx}) "
+          f"and detections; kernel bit-equal to its plain version on all {len(seen)} decoder "
+          f"inputs of {sum(s.rx_calls for s in runner.sims)} receives, (bg, z, codewords) "
+          f"{shapes}; peak memory {untimed_peak_mb:.0f} MB", flush=True)
+    del seen, runner, results
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    reads = []
+    for _ in range(NETWORK_READINGS):
+        runner = example_network(device=dev, sensing=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode_layered_cuda.launches = 0
+        t1 = time.perf_counter()
+        results = runner.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        launches = decode_layered_cuda.launches
+        rx_calls = sum(s.rx_calls for s in runner.sims)
+        if launches != rx_calls or rx_calls <= 0:
+            raise AssertionError(f"network: {launches} kernel launches for {rx_calls} "
+                                 f"sch_receive_batch calls")
+        outs = _network_outcome(runner, results)
+        for c, (out, exp) in enumerate(zip(outs, NETWORK_EXPECT["cells"])):
+            no_sensing = {k: v for k, v in exp.items()
+                          if k != "detections" and k not in CELL_EST_TOL}
+            _check_against(out, no_sensing, f"network timed frame {len(reads)} cell {c}")
+        n = runner.num_slots
+        reads.append({
+            "network_frame_s": secs, "network_slot_ms": secs * 1e3 / n,
+            "network_cell_slots_per_s": len(runner.sims) * n / secs,
+            "ldpc_layered_launches": launches, "sch_receive_batch_calls": rx_calls,
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "stage_host_ms_per_slot": {k: round(v * 1e3 / n, 3)
+                                       for k, v in runner.stage_s.items()},
+            "dl_crc_fail": [sum(o["dl_crc_fail"]) for o in outs],
+        })
+        print(f"network 273 PRB x2 cells timed frame {len(reads) - 1}: " + json.dumps(reads[-1]),
+              flush=True)
+        del runner, results
+    mid = sorted(reads, key=lambda r: r["network_frame_s"])[NETWORK_READINGS // 2]
+    result = {
+        "network_slot_ms": mid["network_slot_ms"],
+        "network_cell_slots_per_s": mid["network_cell_slots_per_s"],
+        "network_slot_ms_readings": [r["network_slot_ms"] for r in reads],
+        "network_cell_slots_per_s_readings": [r["network_cell_slots_per_s"] for r in reads],
+        "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
+        "peak_memory_mb": max(r["peak_memory_mb"] for r in reads),
+        "untimed_peak_memory_mb": untimed_peak_mb, "setup_s": setup_s,
+    }
+    print("network 273 PRB x16 ports x2 cells x5 UEs, one frame, DL + UL interference, "
           "medians: " + json.dumps(result), flush=True)
     return result, reads[0]["ldpc_layered_launches"], kernel_err
 
@@ -1177,9 +1397,17 @@ def main() -> int:
     phase_cell_harq(dev)
     cell_res, cell_launches, cell_err = phase_cell_full(dev)
     max_err = max(max_err, cell_err)
+    torch.cuda.empty_cache()
+
+    # phase 8: the top-level entry and the lockstep network (the same kernel)
+    t8 = time.perf_counter()
+    phase_network_parity(dev)
+    phase_city_entry(dev)
+    _, net_launches, net_err = phase_network_full(dev)
+    max_err = max(max_err, net_err)
     t_end = time.perf_counter()
     print(f"script seconds after import: {t_end - t_start:.1f} in all, phases 1-6 "
-          f"{t7 - t_start:.1f}, phase 7 {t_end - t7:.1f}", flush=True)
+          f"{t7 - t_start:.1f}, phase 7 {t8 - t7:.1f}, phase 8 {t_end - t8:.1f}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "ldpc_layered", "route": "cuda",
@@ -1188,7 +1416,7 @@ def main() -> int:
         "launches": res["ldpc_layered_launches"],
         "launches_by_path": {"link_step": res["ldpc_layered_launches"],
                              "dl_loop": loop_launches["dl"], "ul_loop": loop_launches["ul"],
-                             "cell": cell_launches},
+                             "cell": cell_launches, "network": net_launches},
         "max_abs_err": max_err,
         "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],

@@ -89,33 +89,10 @@ def multi_ue_cell(sim: SimulationParameters, num_ues: int = 8, seed: int = 0) ->
     return sim
 
 
-def hex_cell_centers(num_cells: int, inter_site_distance: float = 500.0) -> np.ndarray:
-    """First `num_cells` hex-grid centers spiraling out from the origin.
-
-    Ring k holds 6k sites; centers use the standard pointy-top hex tiling with
-    site pitch = inter_site_distance (getgNBPositions,
-    generateWrapAround.m:94-166). Kept here until the topology package is
-    ported; multi_cell is its only caller so far."""
-    isd = inter_site_distance
-    centers = [(0.0, 0.0)]
-    k = 1
-    # axial-coordinate ring walk
-    dirs = [(1, 0), (0, 1), (-1, 1), (-1, 0), (0, -1), (1, -1)]
-    while len(centers) < num_cells:
-        q, r = k, 0
-        for d in range(6):
-            for _ in range(k):
-                q += dirs[(d + 2) % 6][0]
-                r += dirs[(d + 2) % 6][1]
-                x = isd * (q + r / 2.0)
-                y = isd * (np.sqrt(3.0) / 2.0) * r
-                centers.append((x, y))
-        k += 1
-    return np.asarray(centers[:num_cells], dtype=np.float64)
-
-
 def multi_cell(sim: SimulationParameters, num_cells: int = 2, seed: int = 0) -> SimulationParameters:
     """BASELINE config #5: multi-cell network (hex wraparound positions)."""
+    from isac_tpu_torch.topology.wraparound import hex_cell_centers
+
     sim = open_street_map_city(sim, seed=seed)
     base = sim.bs["cell1"]
     centers = hex_cell_centers(num_cells, inter_site_distance=500.0)

@@ -15,7 +15,10 @@ the public per-grant functions (CSI-RS / SRS measurement, RI/PMI/CQI/TPMI
 selection, batched PDSCH / PUSCH with HARQ retransmissions); see LinkLoop.
 
 `example_cell`: the per-cell system-level engine (sim/cell.py CellSimulator)
-on the reference's shipped scenario, open_street_map_city.
+on the reference's shipped scenario, open_street_map_city (every link LoS).
+
+`example_network`: co-channel cells of multi_cell in lockstep (sim/network.py
+SyncNetworkRunner) with DL + UL interference and the city's line of sight.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from torch.profiler import record_function
 from dataclasses import replace
 
 from isac_tpu_torch.config.params import ULA, GNBParams, SimulationParameters, assign_cell_parameters
-from isac_tpu_torch.config.scenarios import open_street_map_city
+from isac_tpu_torch.config.scenarios import multi_cell, open_street_map_city
 from isac_tpu_torch.mac.tables import cqi_to_mcs
 from isac_tpu_torch.ops.cdl import build_cdl_link, subcarrier_freqs
 from isac_tpu_torch.ops.csi import (
@@ -55,6 +58,7 @@ from isac_tpu_torch.phy.chains import (
     sch_transmit_batch,
 )
 from isac_tpu_torch.sim.cell import CellSimulator
+from isac_tpu_torch.sim.network import SyncNetworkRunner, resolve_los_cross
 from isac_tpu_torch.sim.sensing import make_sensing_chain
 from isac_tpu_torch.utils.device import resolve_device
 
@@ -447,3 +451,21 @@ def example_cell(n_rb=None, nfft=None, traces=False, device=None):
     if traces:
         cell = replace(cell, log=replace(cell.log, enable_traces=True))
     return CellSimulator(cell, n_rb_override=n_rb, nfft_override=nfft, device=device)
+
+
+def example_network(num_cells=2, n_rb=None, nfft=None, traces=False, sensing=True, device=None):
+    """The lockstep network on multi_cell (config/scenarios.py): num_cells
+    co-channel copies of the shipped cell on a 500 m hex grid, each at 273 PRB
+    (n_rb / nfft cut the carrier), 16 gNB ports, 5 UEs and one target, the
+    line of sight of every serving and cross link from the synthetic city
+    (resolve_los_cross), DL + UL interference. traces=True records each
+    cell's per-slot trace; sensing=False leaves the post-pass out. Returns a
+    SyncNetworkRunner of seed 0 on `device` (None = the card); `.run()`
+    simulates one frame and returns each cell's result."""
+    sim = multi_cell(SimulationParameters(), num_cells=num_cells)
+    sim.validate()
+    cells, cross_los = resolve_los_cross(assign_cell_parameters(sim), sim)
+    if traces:
+        cells = [replace(c, log=replace(c.log, enable_traces=True)) for c in cells]
+    return SyncNetworkRunner(cells, seed=0, cross_los=cross_los, n_rb_override=n_rb,
+                             nfft_override=nfft, enable_sensing=sensing, device=device)

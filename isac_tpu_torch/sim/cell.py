@@ -21,8 +21,12 @@ budget), as in the reference. What differs in form:
 - The channel is the reference's host-phase path: float64 slow-time phases on
   the host, one complex64 upload and one ray contraction per slot and
   direction, cached for 4 slots.
+- The slot is split into phases (`_slot_begin`, `_dl_tx_phase`,
+  `_dl_rx_phase(ext=)`, `_ul_tx_phase`, `_ul_rx_phase(ext=)`,
+  `_slot_epilogue`) so that sim/network.py can run co-channel cells in
+  lockstep and add other cells' signals before each receiver's noise.
 - The reference's segment-fused block mode (`block_slots >= 1`, sim/block.py)
-  and the sharded sensing RDM (`mesh=`) are not ported: both raise.
+  and the sharded sensing RDM (`mesh=`) raise NotImplementedError.
 
 Every stage of a slot runs inside a ``record_function("cell.<stage>")``
 range (tick, plan, dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback,
@@ -164,13 +168,13 @@ class CellSimulator:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (the time-block-sharded sensing RDM) is not ported yet: "
-                "ROADMAP.md Queue 1 item 4 (distribution)")
+                "ROADMAP.md Queue 1 item 2 (distribution)")
         if phy_mode not in ("full", "passthrough"):
             raise ValueError(f"phy_mode must be 'full'|'passthrough', got {phy_mode!r}")
         if int(block_slots) >= 1 and phy_mode != "passthrough":
             raise NotImplementedError(
                 "block_slots >= 1 (the segment-fused engine, sim/block.py) is not "
-                "ported yet: ROADMAP.md Queue 1 item 2")
+                "ported yet: ROADMAP.md Queue 1 item 1 (block mode)")
         self.dev = resolve_device(device)
         self.cell = cell
         gnb = cell.gnb
@@ -1100,13 +1104,18 @@ class CellSimulator:
 
     # ------------------------------------------------------------- slot pieces
 
-    def _slot_begin(self, slot: int) -> dict:
+    def _slot_begin(self, slot: int, skip_materialize: bool = False) -> dict:
         """Timers, due feedback, slot typing, SRS counters: the per-slot
-        prologue a network runner runs per cell before any tx phase."""
+        prologue a network runner runs per cell before any tx phase.
+
+        skip_materialize: the network runner has already brought this cell's
+        due results to the host, in its one readback of every cell's
+        (sim/network.py SyncNetworkRunner._materialize_all)."""
         if slot % self._slots_per_ms == 0:
             with record_function("cell.tick"):
                 self._tick_1ms()
-        self._materialize_due(slot)
+        if not skip_materialize:
+            self._materialize_due(slot)
         self._process_due(slot)
         stype = "D" if self.fdd else self.tdd.slot_type(slot)
         ul_capable = self.fdd or stype in ("U", "S")

@@ -171,7 +171,8 @@ def test_grant_layout_equal(kw):
 
 def test_port_imports_neither_jax_nor_isac_tpu():
     """Every module of isac_tpu_torch imports in a fresh interpreter without
-    pulling in jax or isac_tpu."""
+    pulling in jax or isac_tpu, nor matplotlib (viz.py imports it on first
+    use only)."""
     mods = [m.name for m in pkgutil.walk_packages(isac_tpu_torch.__path__, "isac_tpu_torch.")]
     # a sub-package without __init__.py would silently drop out of the walk
     for m in ("parallel.links", "example", "config.params", "config.scenarios", "ops.ofdm",
@@ -179,12 +180,15 @@ def test_port_imports_neither_jax_nor_isac_tpu():
               "profile_sensing", "ops.csi", "ops.csirs", "ops.srs", "ops.pathloss",
               "phy.passthrough", "profile_link_loop", "sim.cell", "mac.harq", "mac.lcp",
               "mac.pdu", "mac.scheduler", "rlc.um", "rlc.am", "app.traffic", "metrics.kpi",
-              "metrics.logger", "utils.prng", "profile_cell"):
+              "metrics.logger", "utils.prng", "profile_cell", "topology.blockages",
+              "topology.osm", "topology.wraparound", "sim.network", "metrics.persist",
+              "api", "viz", "profile_network"):
         assert f"isac_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'isac_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'isac_tpu', 'matplotlib'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
