@@ -97,6 +97,25 @@ gives a non-zero exit code and no final result line):
      network_cell_slots_per_s; host clock after synchronize), held to the
      same counts, with kernel launches = sch_receive_batch calls, peak memory
      and the runner's host ms per slot of each network.* stage.
+  9. block mode and distribution:
+     9a CellSimulator(block_slots=) on example_cell() at full width: two
+     slot-loop frames of seed 0 (a float surface that differs between them is
+     named and held at SEGMENT_FLOAT_TOL), then a block_slots=8 and a
+     block_slots=1 frame, each equal to the slot loop on every leaf of the
+     result (KPIs, per-UE metrics, trace, logs, sensing estimates), held to
+     CELL_EXPECT, with kernel launches = sch_receive_batch calls; the
+     block_slots=8 frame under the profiler, which must show 0 device-to-host
+     copies issued inside the cell.segment ranges (the host-to-device count
+     printed beside it); then three block_slots=8 frames on fresh simulators,
+     timed (cell_block_slot_ms beside 7b's cell_slot_ms);
+     9b a world of one on the card (init_distributed: NCCL): the mesh link step
+     at 273 PRB / 4 links against the meshless one (crc_ok and tb equal,
+     sinr_db within 1e-3 dB, n_ok = the passes); SyncNetworkRunner(mesh=) on
+     example_network() without sensing through network_cross_rx, held to
+     NETWORK_EXPECT; CellSimulator(mesh=) at 273 PRB, held to CELL_EXPECT,
+     its time-sharded RDM within 2e-5 of max|RDM| of the serial map of the
+     same engine and the same detections. The process group is destroyed at
+     the end.
 Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 
@@ -1344,6 +1363,274 @@ def phase_network_full(dev):
     return result, reads[0]["ldpc_layered_launches"], kernel_err
 
 
+# Float tolerances for a result surface that two slot-loop frames of one seed
+# already give differently on the card (none is expected: the path has no
+# atomic float reduction); every other leaf of the result must be exact.
+SEGMENT_FLOAT_TOL = {"sinr_db": LOOP_SINR_ATOL_DB, "rdm": SENSING_RDM_TOL,
+                     "Throughput": CELL_THR_RTOL, "Goodput": CELL_THR_RTOL, **CELL_EST_TOL}
+BLOCK_READINGS = 3
+
+
+def _result_leaves(res) -> dict:
+    """{path: host value} of every leaf of an engine result (the sensing
+    params left out: host dataclasses, equal by construction)."""
+    import numpy as np
+    import torch
+
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k in x:
+                if not (path == ".sensing" and k == "params"):
+                    walk(x[k], f"{path}.{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        else:
+            out[path] = x.detach().cpu().numpy() if torch.is_tensor(x) else (
+                x if x is None or isinstance(x, str) else np.asarray(x))
+
+    walk(res, "")
+    return out
+
+
+def _differing(a: dict, b: dict) -> dict:
+    """{path: max |a - b|} of the leaves where two results differ; raises if
+    they differ in structure, or in an integer, flag, string or log entry."""
+    import numpy as np
+
+    if a.keys() != b.keys():
+        raise AssertionError(f"result structure differs: {sorted(a.keys() ^ b.keys())[:5]}")
+    out = {}
+    for k, x in a.items():
+        y = b[k]
+        if x is None or isinstance(x, str):
+            if x != y:
+                raise AssertionError(f"{k}: {x!r} vs {y!r}")
+            continue
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{k}: {x.dtype}{x.shape} vs {y.dtype}{y.shape}")
+        if np.array_equal(x, y, equal_nan=x.dtype.kind in "fc"):
+            continue
+        if x.dtype.kind not in "fc" or ".logs." in k:
+            raise AssertionError(f"{k}: exact surface differs")
+        out[k] = float(np.nanmax(np.abs(x.astype(np.complex128) - y.astype(np.complex128))))
+    return out
+
+
+def _within_float_tol(path: str, a, b) -> bool:
+    import numpy as np
+
+    key = next((k for k in SEGMENT_FLOAT_TOL if k in path.rsplit(".", 1)[-1]), None)
+    if key is None:
+        return False
+    tol, d = SEGMENT_FLOAT_TOL[key], np.abs(a.astype(np.complex128) - b.astype(np.complex128))
+    if key == "rdm":
+        return bool(np.nanmax(d) <= tol * np.abs(a).max())
+    if key in ("Throughput", "Goodput"):
+        return bool(np.allclose(b, a, rtol=tol, atol=0, equal_nan=True))
+    return bool(np.nanmax(d) <= tol)
+
+
+def _segment_copies(prof) -> dict:
+    """Device copies by direction, launched from inside and outside the
+    `cell.segment` ranges of a profiled run (a copy is attributed to the
+    host op that issued it)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    segs = [(e.time_range.start, e.time_range.end) for e in events
+            if e.name == "cell.segment" and e.device_type == DeviceType.CPU]
+    out = {"segments": len(segs), "d2h_in": 0, "h2d_in": 0, "d2h_out": 0, "h2d_out": 0,
+           "d2h_ops_in": [], "d2h_device_events": 0}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            out["d2h_device_events"] += "DtoH" in e.name
+            continue
+        inside = any(a <= e.time_range.start and e.time_range.end <= b for a, b in segs)
+        for k in e.kernels:
+            for d in ("d2h", "h2d"):
+                if ("DtoH" if d == "d2h" else "HtoD") in k.name:
+                    out[f"{d}_{'in' if inside else 'out'}"] += 1
+                    if d == "d2h" and inside:
+                        out["d2h_ops_in"].append(e.name)
+    return out
+
+
+def phase_block_mode(dev, cell_slot_ms):
+    """Phase 9a: block mode (CellSimulator(block_slots=)) at full width
+    against the slot loop, its device-to-host copies inside segments, and
+    its slot time. Returns the kernel launches of the first timed frame."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from isac_tpu_torch.example import example_cell
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+
+    def frame(block_slots, profiled=False):
+        sim = example_cell(device=dev, traces=True, block_slots=block_slots)
+        torch.cuda.synchronize()
+        decode_layered_cuda.launches = 0
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+               else contextlib.nullcontext())
+        with ctx as prof:
+            res = sim.run()
+            torch.cuda.synchronize()
+        if decode_layered_cuda.launches != sim.rx_calls or sim.rx_calls <= 0:
+            raise AssertionError(f"block {block_slots}: {decode_layered_cuda.launches} kernel "
+                                 f"launches for {sim.rx_calls} sch_receive_batch calls")
+        _check_against(_cell_outcome(sim, res), CELL_EXPECT, f"block_slots={block_slots} frame")
+        return sim, _result_leaves(res), prof
+
+    loop_sim, loop_a, _ = frame(0)
+    _, loop_b, _ = frame(0)
+    noisy = _differing(loop_a, loop_b)
+    for k in noisy:
+        if not _within_float_tol(k, loop_a[k], loop_b[k]):
+            raise AssertionError(f"two slot-loop frames differ in {k} by {noisy[k]}")
+    print(f"block mode 273 PRB: two slot-loop frames of seed 0 equal on all "
+          f"{len(loop_a)} result leaves except {noisy or 'none'}", flush=True)
+    for bs in (8, 1):
+        sim, leaves, prof = frame(bs, profiled=bs == 8)
+        diff = _differing(loop_a, leaves)
+        bad = {k: v for k, v in diff.items()
+               if k not in noisy or not _within_float_tol(k, loop_a[k], leaves[k])}
+        if bad:
+            raise AssertionError(f"block_slots={bs} differs from the slot loop in {bad}")
+        if sim.metrics.trace != loop_sim.metrics.trace and not noisy:
+            raise AssertionError(f"block_slots={bs}: trace differs from the slot loop")
+        msg = (f"block_slots={bs} frame: equal to the slot loop on all {len(leaves)} result "
+               f"leaves" + (f" (float surfaces within tolerance: {sorted(diff)})" if diff else "")
+               + f", CELL_EXPECT held, {sim.rx_calls} kernel launches = receives, segments "
+               f"{sim.segment_lens}")
+        if prof is not None:
+            copies = _segment_copies(prof)
+            if copies["segments"] != len(sim.segment_lens):
+                raise AssertionError(f"block mode: {copies['segments']} cell.segment ranges "
+                                     f"for {len(sim.segment_lens)} segments")
+            if copies["d2h_out"] == 0 or copies["d2h_in"] + copies["d2h_out"] != copies[
+                    "d2h_device_events"]:
+                raise AssertionError(f"block mode: device-to-host copies not attributed: {copies}")
+            if copies["d2h_in"] != 0:
+                raise AssertionError(f"block mode: {copies['d2h_in']} device-to-host copies "
+                                     f"inside segments, from {copies['d2h_ops_in'][:10]}")
+            msg += (f"; profiler: 0 device-to-host copies inside the {copies['segments']} "
+                    f"cell.segment ranges ({copies['d2h_out']} outside), "
+                    f"{copies['h2d_in']} host-to-device copies inside ({copies['h2d_out']} "
+                    f"outside)")
+        print(msg, flush=True)
+    reads = []
+    for _ in range(BLOCK_READINGS):
+        sim = example_cell(device=dev, block_slots=8)
+        torch.cuda.synchronize()
+        decode_layered_cuda.launches = 0
+        t1 = time.perf_counter()
+        sim.run(finalize=False)
+        torch.cuda.synchronize()
+        slot_ms = (time.perf_counter() - t1) * 1e3 / sim.num_slots
+        launches = decode_layered_cuda.launches
+        if launches != sim.rx_calls:
+            raise AssertionError(f"block timed frame: {launches} launches, {sim.rx_calls} "
+                                 f"receives")
+        res = sim.finalize(sensing=False)
+        out = _cell_outcome(sim, res)
+        _check_against(out, {k: v for k, v in CELL_EXPECT.items()
+                             if k != "detections" and k not in CELL_EST_TOL},
+                       f"block timed frame {len(reads)}")
+        reads.append({"cell_block_slot_ms": slot_ms, "ldpc_layered_launches": launches,
+                      "segments": len(sim.segment_lens)})
+    mid = sorted(r["cell_block_slot_ms"] for r in reads)[BLOCK_READINGS // 2]
+    print("block mode 273 PRB, block_slots=8, three frames on fresh simulators: " + json.dumps({
+        "cell_block_slot_ms": mid,
+        "cell_block_slot_ms_readings": [r["cell_block_slot_ms"] for r in reads],
+        "cell_slot_ms": cell_slot_ms,
+        "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
+        "segments_per_frame": [r["segments"] for r in reads]}), flush=True)
+    return reads[0]["ldpc_layered_launches"]
+
+
+def phase_distributed(dev):
+    """Phase 9b: the parallel/ functions and the mesh paths of the network
+    runner and the engine at a world of one on the card (NCCL). Returns the
+    kernel launches of the mesh link step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from isac_tpu_torch.example import example_cell, example_link_batch, example_network
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+    from isac_tpu_torch.parallel import global_mesh, init_distributed, make_link_step
+
+    info = init_distributed()
+    try:
+        if dist.get_backend() != "nccl" or info["num_processes"] != 1:
+            raise AssertionError(f"distributed: {dist.get_backend()} {info}")
+        g, (tb, w, h, noise), _ = example_link_batch(n_prb=273, n_links=4, mcs=19,
+                                                     n_layers=2, device=dev)
+        ref = make_link_step(g, device=dev)[0](tb, w, h, noise)
+        step, _ = make_link_step(g, device=dev, mesh=global_mesh({"link": -1}))
+        torch.cuda.synchronize()
+        decode_layered_cuda.launches = 0
+        out = step(tb, w, h, noise)
+        torch.cuda.synchronize()
+        link_launches = decode_layered_cuda.launches
+        d = float((out["sinr_db"] - ref["sinr_db"]).abs().max())
+        if not (torch.equal(out["crc_ok"], ref["crc_ok"]) and torch.equal(out["tb"], ref["tb"])
+                and d <= SLICE_SINR_ATOL_DB and int(out["n_ok"]) == int(ref["crc_ok"].sum())
+                and link_launches > 0):
+            raise AssertionError(f"mesh link step: n_ok {int(out['n_ok'])}, d sinr {d}, "
+                                 f"{link_launches} launches")
+        print(f"distributed world of one ({dist.get_backend()}, {info}): mesh link step 273 PRB "
+              f"x4 links = the meshless step (crc_ok/tb equal, max |d sinr_db| {d:.3g} dB), "
+              f"n_ok {int(out['n_ok'])}, {link_launches} kernel launches", flush=True)
+
+        mesh_c = global_mesh({"cell": -1})
+        runner = example_network(device=dev, sensing=False, mesh=mesh_c)
+
+        def host_path(*args):
+            raise AssertionError("the mesh runner took the per-destination path")
+
+        runner._dl_ext = host_path
+        decode_layered_cuda.launches = 0
+        t1 = time.perf_counter()
+        results = runner.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        rx_calls = sum(s.rx_calls for s in runner.sims)
+        if runner.mesh is not mesh_c or decode_layered_cuda.launches != rx_calls:
+            raise AssertionError(f"mesh network: mesh {runner.mesh}, "
+                                 f"{decode_layered_cuda.launches} launches for {rx_calls}")
+        for c, (o, exp) in enumerate(zip(_network_outcome(runner, results),
+                                         NETWORK_EXPECT["cells"])):
+            _check_against(o, {k: v for k, v in exp.items()
+                               if k != "detections" and k not in CELL_EST_TOL},
+                           f"mesh network cell {c}")
+        print(f"distributed: SyncNetworkRunner(mesh=) 273 PRB x2 cells, one frame without "
+              f"sensing through network_cross_rx: NETWORK_EXPECT held, {rx_calls} launches = "
+              f"receives, {secs * 1e3 / runner.num_slots:.1f} ms a slot", flush=True)
+        del runner, results
+
+        sim = example_cell(device=dev, mesh=global_mesh({"cell": 1, "time": -1}))
+        res = sim.run()
+        _check_against(_cell_outcome(sim, res), CELL_EXPECT, "mesh engine")
+        est = res["sensing"]["estimates"]
+        sim.mesh = None  # the same engine's post-pass with the serial map
+        serial = sim.run_sensing()["estimates"]
+        rel = float((est["rdm"] - serial["rdm"]).abs().max() / serial["rdm"].abs().max())
+        same = all(np.array_equal(est[k].cpu().numpy(), serial[k].cpu().numpy(), equal_nan=True)
+                   for k in ("valid", "rngEst", "velEst", "aziEst"))
+        if not (rel <= SENSING_RDM_TOL and same):
+            raise AssertionError(f"mesh engine: RDM {rel} of max from the serial map, "
+                                 f"detections equal: {same}")
+        print(f"distributed: CellSimulator(mesh=) 273 PRB, time-sharded RDM within "
+              f"{rel:.3g} of max|RDM| of the serial map (bound {SENSING_RDM_TOL}), the same "
+              f"detections, CELL_EXPECT held", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return link_launches
+
+
 def main() -> int:
     import torch
 
@@ -1405,9 +1692,17 @@ def main() -> int:
     phase_city_entry(dev)
     _, net_launches, net_err = phase_network_full(dev)
     max_err = max(max_err, net_err)
+    torch.cuda.empty_cache()
+
+    # phase 9: block mode and the distributed paths (the same kernel)
+    t9 = time.perf_counter()
+    block_launches = phase_block_mode(dev, cell_res["cell_slot_ms"])
+    torch.cuda.empty_cache()
+    mesh_link_launches = phase_distributed(dev)
     t_end = time.perf_counter()
     print(f"script seconds after import: {t_end - t_start:.1f} in all, phases 1-6 "
-          f"{t7 - t_start:.1f}, phase 7 {t8 - t7:.1f}, phase 8 {t_end - t8:.1f}", flush=True)
+          f"{t7 - t_start:.1f}, phase 7 {t8 - t7:.1f}, phase 8 {t9 - t8:.1f}, "
+          f"phase 9 {t_end - t9:.1f}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "ldpc_layered", "route": "cuda",
@@ -1416,7 +1711,8 @@ def main() -> int:
         "launches": res["ldpc_layered_launches"],
         "launches_by_path": {"link_step": res["ldpc_layered_launches"],
                              "dl_loop": loop_launches["dl"], "ul_loop": loop_launches["ul"],
-                             "cell": cell_launches, "network": net_launches},
+                             "cell": cell_launches, "network": net_launches,
+                             "block": block_launches, "mesh_link": mesh_link_launches},
         "max_abs_err": max_err,
         "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],

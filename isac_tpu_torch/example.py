@@ -438,28 +438,32 @@ def example_sensing(num_slots=20, seed=0, device=None, gnb=None,
     return chain, params, (grid_dev,)
 
 
-def example_cell(n_rb=None, nfft=None, traces=False, device=None):
+def example_cell(n_rb=None, nfft=None, traces=False, device=None, **engine_kwargs):
     """The engine on the reference's shipped scenario (config/scenarios.py
     open_street_map_city): 273 PRB at SCS 30 kHz (100 MHz, nfft 4096), a
     16-port gNB (8x2-pol ULA, 44 dBm), 5 two-antenna UEs, one target, PF
     scheduling, On-Off traffic at 40 / 10 Mbps, CDL-D, UMa pathloss, DDDSU,
     one frame of 20 slots, sensing with MUSIC DoA. n_rb / nfft cut the carrier
     (tests run 24 PRB / 512 on the CPU); traces=True records the per-slot
-    trace. Returns a CellSimulator of seed 0 on `device` (None = the card);
-    `.run()` simulates the frame and returns the KPIs, logs and sensing result."""
+    trace; engine_kwargs go to CellSimulator (block_slots=, mesh=, ...).
+    Returns a CellSimulator of seed 0 on `device` (None = the card); `.run()`
+    simulates the frame and returns the KPIs, logs and sensing result."""
     cell = assign_cell_parameters(open_street_map_city(SimulationParameters()))[0]
     if traces:
         cell = replace(cell, log=replace(cell.log, enable_traces=True))
-    return CellSimulator(cell, n_rb_override=n_rb, nfft_override=nfft, device=device)
+    return CellSimulator(cell, n_rb_override=n_rb, nfft_override=nfft, device=device,
+                         **engine_kwargs)
 
 
-def example_network(num_cells=2, n_rb=None, nfft=None, traces=False, sensing=True, device=None):
+def example_network(num_cells=2, n_rb=None, nfft=None, traces=False, sensing=True, device=None,
+                    mesh=None):
     """The lockstep network on multi_cell (config/scenarios.py): num_cells
     co-channel copies of the shipped cell on a 500 m hex grid, each at 273 PRB
     (n_rb / nfft cut the carrier), 16 gNB ports, 5 UEs and one target, the
     line of sight of every serving and cross link from the synthetic city
     (resolve_los_cross), DL + UL interference. traces=True records each
-    cell's per-slot trace; sensing=False leaves the post-pass out. Returns a
+    cell's per-slot trace; sensing=False leaves the post-pass out; mesh (a
+    DeviceMesh with a `cell` dimension) shards the DL cross terms. Returns a
     SyncNetworkRunner of seed 0 on `device` (None = the card); `.run()`
     simulates one frame and returns each cell's result."""
     sim = multi_cell(SimulationParameters(), num_cells=num_cells)
@@ -468,4 +472,5 @@ def example_network(num_cells=2, n_rb=None, nfft=None, traces=False, sensing=Tru
     if traces:
         cells = [replace(c, log=replace(c.log, enable_traces=True)) for c in cells]
     return SyncNetworkRunner(cells, seed=0, cross_los=cross_los, n_rb_override=n_rb,
-                             nfft_override=nfft, enable_sensing=sensing, device=device)
+                             nfft_override=nfft, enable_sensing=sensing, device=device,
+                             mesh=mesh)

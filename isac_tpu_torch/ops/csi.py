@@ -92,12 +92,18 @@ def ri_select(h: torch.Tensor, nvar, max_rank: int = 4) -> torch.Tensor:
     """Rank by per-rank Shannon capacity on the channel singular values
     (riSelect.m approach). h [n_re, n_rx, n_tx] -> rank (0-d tensor, 1-based).
 
-    Singular values come from the rx-side Gram matrix: analytic eigenvalues
-    for n_rx <= 2, eigvalsh above (a batched solver call on the card)."""
-    n_rx = h.shape[-2]
-    g = torch.matmul(h, torch.conj(h.transpose(-1, -2)))  # H H^H [.., rx, rx]
-    if n_rx <= 2 <= h.shape[-1]:
-        if n_rx == 1:
+    Singular values come from the Gram matrix of the smaller side: analytic
+    eigenvalues when n_rx or n_tx is at most 2 (H H^H and H^H H share their
+    non-zero eigenvalues, and only min(n_rx, n_tx) of them are used), so the
+    card never waits for the host; eigvalsh of H H^H above, whose error check
+    synchronises the card with the host. The reference takes eigvalsh of
+    H H^H whenever n_rx > 2, so for the uplink's 16 receive antennas the
+    singular values agree with it to float32 rounding, not bit for bit."""
+    n_rx, n_tx = h.shape[-2], h.shape[-1]
+    if min(n_rx, n_tx) <= 2:
+        hc = torch.conj(h.transpose(-1, -2))
+        g = torch.matmul(h, hc) if n_rx <= n_tx else torch.matmul(hc, h)  # [.., m, m]
+        if g.shape[-1] == 1:
             s = torch.sqrt(torch.clamp_min(torch.real(g[..., 0, 0]), 0.0))[..., None]
         else:
             tr = torch.real(g[..., 0, 0] + g[..., 1, 1])
@@ -107,6 +113,7 @@ def ri_select(h: torch.Tensor, nvar, max_rank: int = 4) -> torch.Tensor:
             e2 = torch.clamp_min(tr / 2.0 - disc, 0.0)
             s = torch.sqrt(torch.stack([e1, e2], dim=-1))  # descending
     else:
+        g = torch.matmul(h, torch.conj(h.transpose(-1, -2)))  # H H^H [.., rx, rx]
         ev = torch.linalg.eigvalsh(g)  # ascending, real
         s = torch.sqrt(torch.clamp_min(torch.flip(ev, dims=(-1,)), 0.0))  # descending
     max_rank = min(max_rank, h.shape[-1], h.shape[-2])
@@ -225,7 +232,7 @@ def ul_tpmi_select(
     sinr = precoded_sinr(h, cb, nvar)  # [n_cw, n_re, rank]
     cap = torch.sum(torch.log2(1.0 + sinr), dim=-1)
     tpmi = torch.argmax(torch.mean(cap, dim=-1))
-    sel = sinr[tpmi]  # [n_re, rank]
+    sel = torch.index_select(sinr, 0, tpmi[None])[0]  # [n_re, rank], no host read of tpmi
     if subband_of_re is None:
         return tpmi, 10.0 * torch.log10(torch.clamp_min(torch.mean(sel), 1e-9))[None]
     oneh = _subband_mean_matrix(subband_of_re, h.device)

@@ -1,10 +1,7 @@
 """The batched PDSCH link step (counterpart of isac_tpu/parallel/links.py):
 the per-link PHY transmit -> CDL channel -> receive as one tensor program
-over a leading link axis.
-
-Only the single-device form is ported here (the reference's
-``make_sharded_link_step(g, mesh=None)``); the mesh form waits for the
-distribution slice.
+over a leading link axis, on one device or with the links sharded over a
+mesh axis (the reference's ``make_sharded_link_step(g, mesh)``).
 """
 
 from __future__ import annotations
@@ -16,6 +13,7 @@ import torch
 from torch.profiler import record_function
 
 from isac_tpu_torch.ops.cdl import CDLLink
+from isac_tpu_torch.parallel.mesh import axis_info, gather, psum, shard
 from isac_tpu_torch.phy.chains import (
     SCHGrant,
     _dmrs_refs,
@@ -91,14 +89,19 @@ def batched_frequency_response(
 
 
 def make_link_step(grant: SCHGrant, n_ldpc_iter: int = 6, device=None,
-                   impl: str | None = None):
+                   impl: str | None = None, mesh=None, axis: str = "link"):
     """Build the batched link step: tb[L, TBS] int8, w[L, n_prg, ports, layers],
     h[L, S, K, rx, ports], noise[L, rx, S, K] -> dict(crc_ok[L], sinr_db[L],
     tb[L, TBS]). Returns (step, tbs).
 
     device: None means the card (raises without one). impl selects the LDPC
     decoder: None = the CUDA kernel on the card, the plain version on the
-    CPU; 'torch' forces the plain version (for comparisons on the card)."""
+    CPU; 'torch' forces the plain version (for comparisons on the card).
+
+    mesh: a DeviceMesh with an `axis` dimension (parallel/mesh.py). Every rank
+    passes the same global inputs; it runs its block of the links, the
+    outputs are all_gathered, and the dict gains n_ok, the CRC-pass count
+    all_reduce'd over the axis (the cell's aggregate metric)."""
     dev = resolve_device(device)
     key = grant.layout_key()
     lay = _layout(key)
@@ -115,4 +118,13 @@ def make_link_step(grant: SCHGrant, n_ldpc_iter: int = 6, device=None,
         out = rx(rxg, seq, refs, prbs, grant.rv)
         return {"crc_ok": out["crc_ok"], "sinr_db": out["sinr_db"], "tb": out["tb"]}
 
-    return step, grant_tbs(grant)
+    if mesh is None:
+        return step, grant_tbs(grant)
+    group, r, n = axis_info(mesh, axis)
+
+    def sharded(tb, w, h, noise):
+        out = step(shard(tb, r, n), shard(w, r, n), shard(h, r, n), shard(noise, r, n))
+        n_ok = psum(out["crc_ok"].to(torch.int32).sum(), group)
+        return {**{k: gather(v, group) for k, v in out.items()}, "n_ok": n_ok}
+
+    return sharded, grant_tbs(grant)

@@ -1,6 +1,6 @@
 """Where the time of the per-cell engine goes on the card.
 
-    python3 -m isac_tpu_torch.profile_cell [--frames N]
+    python3 -m isac_tpu_torch.profile_cell [--frames N] [--block-slots K]
 
 Runs the engine on the shipped scenario (example_cell: open_street_map_city,
 273 PRB, 16 gNB ports, 5 UEs, one target, one frame of 20 slots) and prints
@@ -16,6 +16,9 @@ one JSON object per line:
     dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback; set in sim/cell.py);
   - "profile_finalize": the same over finalize() (last due results, KPIs and
     the sensing post-pass, range ``cell.sensing``).
+--block-slots K runs every frame in block mode with segments of at most K
+slots (sim/block.py; each segment's device work is one ``cell.segment``
+range); 0, the default, runs the slot loop.
 The ``cell.*`` ranges hold the chains' own (``pdsch.*``, ``pusch.*``,
 ``sensing.*``), which are listed beside them (their host ms count twice
 there) and kept out of the kernel counts. It needs a CUDA card and raises
@@ -66,11 +69,12 @@ def main() -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--block-slots", type=int, default=0)
     args = ap.parse_args()
     dev = resolve_device(None)
 
     def make():
-        return example_cell(device=dev)
+        return example_cell(device=dev, block_slots=args.block_slots)
 
     n_slots = make().num_slots
     warm = _frame(make, n_slots)  # constants on the device, FFT plans, kernel build

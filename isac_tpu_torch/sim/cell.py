@@ -24,13 +24,20 @@ budget), as in the reference. What differs in form:
 - The slot is split into phases (`_slot_begin`, `_dl_tx_phase`,
   `_dl_rx_phase(ext=)`, `_ul_tx_phase`, `_ul_rx_phase(ext=)`,
   `_slot_epilogue`) so that sim/network.py can run co-channel cells in
-  lockstep and add other cells' signals before each receiver's noise.
-- The reference's segment-fused block mode (`block_slots >= 1`, sim/block.py)
-  and the sharded sensing RDM (`mesh=`) raise NotImplementedError.
+  lockstep and add other cells' signals before each receiver's noise. Each
+  tx phase and the SRS are a host half (`_plan_dl`, `_plan_ul`,
+  `_plan_srs`) and a device half (`_apply_dl_tx`, `_apply_ul_tx`,
+  `_apply_srs`).
+- Block mode (`block_slots >= 1`) runs the host halves ahead up to the next
+  feedback boundary and then the segment's device halves (sim/block.py),
+  with the slot loop's results bit for bit.
+- `mesh=` computes the sensing RDM sharded over the mesh's `mesh_time_axis`
+  (parallel/time_blocks.py).
 
 Every stage of a slot runs inside a ``record_function("cell.<stage>")``
 range (tick, plan, dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback,
-sensing), which `isac_tpu_torch/profile_cell.py` reads.
+sensing; segment around a block-mode segment's device work), which
+`isac_tpu_torch/profile_cell.py` reads.
 """
 
 from __future__ import annotations
@@ -85,6 +92,7 @@ from isac_tpu_torch.phy.chains import (
 from isac_tpu_torch.phy.passthrough import CQIWalk, passthrough_crc
 from isac_tpu_torch.rlc.am import AMEntity
 from isac_tpu_torch.rlc.um import UMEntity
+from isac_tpu_torch.sim.block import dispatch_segment
 from isac_tpu_torch.sim.sensing import make_sensing_chain
 from isac_tpu_torch.utils import prng
 from isac_tpu_torch.utils.device import resolve_device
@@ -146,7 +154,13 @@ class _PendingFeedback:
 
 class CellSimulator:
     """One cell: gNB + UEs + targets. `run()` executes the full timeline on
-    `device` (None means the card; raises without one)."""
+    `device` (None means the card; raises without one).
+
+    mesh: a DeviceMesh (parallel/mesh.py) whose `mesh_time_axis` dimension
+    shards the FFT chain's range-Doppler map over symbol blocks; every rank
+    runs the same engine. block_slots: 0 runs the slot loop; k >= 1 runs
+    block mode with segments of at most k slots (1: one slot per segment).
+    The sizes of the segments run are appended to `segment_lens`."""
 
     def __init__(
         self,
@@ -162,20 +176,17 @@ class CellSimulator:
         phy_mode: str = "full",
         pcap_path: str | None = None,
         mesh=None,
+        mesh_time_axis: str = "time",
         block_slots: int = 0,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (the time-block-sharded sensing RDM) is not ported yet: "
-                "ROADMAP.md Queue 1 item 2 (distribution)")
         if phy_mode not in ("full", "passthrough"):
             raise ValueError(f"phy_mode must be 'full'|'passthrough', got {phy_mode!r}")
-        if int(block_slots) >= 1 and phy_mode != "passthrough":
-            raise NotImplementedError(
-                "block_slots >= 1 (the segment-fused engine, sim/block.py) is not "
-                "ported yet: ROADMAP.md Queue 1 item 1 (block mode)")
         self.dev = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_time_axis = mesh_time_axis
+        self.block_slots = int(block_slots)
+        self.segment_lens: list = []
         self.cell = cell
         gnb = cell.gnb
         self.carrier = CarrierConfig(
@@ -679,8 +690,11 @@ class CellSimulator:
         self._srs_csi_update(ue, slot, h_meas)
 
     def _plan_srs(self, ues: list) -> dict:
-        """Host-built SRS grids + amplitudes of the sounding UEs (setupSRS.m
-        comb offsets)."""
+        """Host half of a slot's SRS: the sounding UEs, and for the
+        transmitted-SRS path their grids + amplitudes (setupSRS.m comb
+        offsets); fast_csi needs no grid."""
+        if self.fast_csi:
+            return {"ues": list(ues), "fast": True}
         grids = []
         amps = []
         for u in ues:
@@ -691,11 +705,15 @@ class CellSimulator:
         return {"ues": list(ues), "grids": np.stack(grids),
                 "amps": np.asarray(amps, np.float32)}
 
-    def _srs_slot(self, slot: int, ues: list):
-        """Transmitted-SRS path (gNBPhy.m srsRxProcessing:983-1062): every
-        sounding UE's comb-4 SRS rides symbol 13, the gNB receives the SUM and
-        estimates each UE from its comb."""
-        plan = self._plan_srs(ues)
+    def _apply_srs(self, slot: int, plan: dict):
+        """Device half of a slot's SRS. Transmitted-SRS path (gNBPhy.m
+        srsRxProcessing:983-1062): every sounding UE's comb-4 SRS rides symbol
+        13, the gNB receives the SUM and estimates each UE from its comb."""
+        if plan.get("fast"):
+            for u in plan["ues"]:
+                self._srs_measure(u, slot)
+            return
+        ues = plan["ues"]
         h_sel = self._h_slot(slot, "UL")[self._to_dev(np.asarray(ues, np.int64))]
         grids = self._to_dev(plan["grids"]) * self._to_dev(plan["amps"])[:, None, None, None]
         rx = torch.einsum("gtsk,gskat->ask", grids, h_sel)
@@ -1071,7 +1089,8 @@ class CellSimulator:
     def run_sensing(self) -> dict:
         """Post-pass: accumulated DL grids -> echo -> RDM -> CFAR -> DoA ->
         RMSE (cellSimulation.m:189-202). The echo's AWGN is the reference's
-        draw under the key of (seed, 10**6, 0)."""
+        draw under the key of (seed, 10**6, 0). With a mesh, the FFT chain's
+        RDM is the time-block-sharded map."""
         cell = self.cell
         algo = cell.gnb.radar.est_algorithm.upper()
         if algo not in ("FFT", "MUSIC"):
@@ -1086,6 +1105,7 @@ class CellSimulator:
                 self.num_slots, starts, widths,
                 target_los=np.asarray(cell.target_los, bool),
                 algo=algo, doa_method=self.doa_method, device=self.dev,
+                mesh=self.mesh, mesh_axis=self.mesh_time_axis,
             )
             n = int(self.info.symbol_lengths_slots(self.num_slots).sum())
             kr, ki = prng.split(self._slot_key(10**6, 0))
@@ -1177,11 +1197,8 @@ class CellSimulator:
                     cqi = self._cqi_walk.report(u)
                     self.scheduler.update_ul_csi(u, cqi, 1, 0)
                     self.sched_log.log_csi(slot, "UL", u, cqi)
-            elif self.fast_csi:
-                for u in sounding:
-                    self._srs_measure(u, slot)
             else:
-                self._srs_slot(slot, sounding)
+                self._apply_srs(slot, self._plan_srs(sounding))
 
     def finalize(self, sensing: bool = True) -> dict:
         """Flush deferred results and assemble the result dict (the tail of
@@ -1218,19 +1235,76 @@ class CellSimulator:
     def run(self, start_slot: int = 0, stop_slot: int | None = None,
             finalize: bool = True):
         """Main slot loop (cellSimulation.m:147-187) + sensing post-pass.
-        start_slot/stop_slot bound the loop for checkpoint/resume."""
+        start_slot/stop_slot bound the loop for checkpoint/resume. With
+        block_slots >= 1 (and the full PHY) the slots run in block mode."""
         stop = self.num_slots if stop_slot is None else stop_slot
-        for slot in range(start_slot, stop):
-            info = self._slot_begin(slot)
-            n_dl = self._dl_syms(info)
-            if n_dl:
-                st = self._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
-                if st is not None:
-                    self._dl_rx_phase(slot, info["csi_slot"], st)
-            self._slot_finish(slot, info)
+        if self.block_slots >= 1 and not self.passthrough:
+            self._run_blocks(start_slot, stop)
+        else:
+            for slot in range(start_slot, stop):
+                info = self._slot_begin(slot)
+                n_dl = self._dl_syms(info)
+                if n_dl:
+                    st = self._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
+                    if st is not None:
+                        self._dl_rx_phase(slot, info["csi_slot"], st)
+                self._slot_finish(slot, info)
         if finalize:
             return self.finalize()
         return None
+
+    # ------------------------------------------------------------ block mode
+
+    def _has_deferred_due(self, slot: int) -> bool:
+        return any(e["due"] <= slot for e in self._deferred) or any(
+            p.due_slot <= slot for p in self.pending
+        )
+
+    def _plan_slot(self, slot: int, info: dict) -> dict:
+        """Host control plane of one slot in block mode, in the slot loop's
+        order (DL plan -> UL plan -> BSR -> SRS plan), with no device work."""
+        n_dl = self._dl_syms(info)
+        n_ul = self._ul_syms(info)
+        p = {"slot": slot, "n_dl": n_dl, "n_ul": n_ul,
+             "csi": info["csi_slot"], "dl": None, "ul": None, "srs": None}
+        if n_dl:
+            p["dl"] = self._plan_dl(slot, n_dl, info["csi_slot"])
+        if n_ul:
+            p["ul"] = self._plan_ul(slot, n_ul)
+        self._epilogue_bsr(slot, info)
+        if info["sounding"]:
+            p["srs"] = self._plan_srs(info["sounding"])
+        return p
+
+    def _plan_min_due(self, p: dict) -> int:
+        """Earliest due slot of the plan's device results: the segment ends
+        before it, where the slot loop would read them back."""
+        s = p["slot"]
+        dues = []
+        if p["dl"] is not None and (p["dl"]["groups"] or p["csi"]):
+            dues.append(self._next_ul_slot(s))
+        if p["ul"] is not None or p["srs"] is not None:
+            dues.append(s + 1)
+        return min(dues) if dues else 10**9
+
+    def _run_blocks(self, start: int, stop: int):
+        """Block-mode slot loop: the host plans slots ahead until the next
+        feedback-due boundary (or block_slots slots), then the segment's
+        device work is dispatched (sim/block.py). Due slots, keys and every
+        result equal the slot loop's."""
+        slot = start
+        while slot < stop:
+            plans: list = []
+            horizon = 10**9
+            while slot < stop and len(plans) < self.block_slots:
+                if plans and (horizon <= slot or self._has_deferred_due(slot)):
+                    break
+                info = self._slot_begin(slot)
+                p = self._plan_slot(slot, info)
+                plans.append(p)
+                horizon = min(horizon, self._plan_min_due(p))
+                slot += 1
+            dispatch_segment(self, plans)
 
     # --------------------------------------------------------- checkpointing
 

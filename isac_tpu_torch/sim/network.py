@@ -27,7 +27,13 @@ pathlosses, and the due slots of every cell's results. What differs in form:
 - Every cell's due results come back in ONE device-to-host copy per network
   slot (`_materialize_all` over sim/cell.py `_readback`), in place of the
   reference's f32 bit-packed relay fetch; the due slots are the same.
-- `mesh=` (cells across a device mesh) raises NotImplementedError.
+- `mesh=` (a DeviceMesh with a `cell` dimension, parallel/mesh.py): the DL
+  cross terms of every destination come from one `network_cross_rx` call per
+  slot (parallel/cells.py), each rank contracting its block of destinations
+  after one all_gather of the transmit grids; every rank runs every cell's
+  engine. Cells that differ in shape or ray count cannot stack on the mesh
+  axis and take the per-destination path, as in the reference; `mesh` is
+  then None after the banks are built.
 
 Each stage of a network slot runs inside ``record_function("network.<stage>")``
 (banks, readback, dl_tx, dl_cross, dl_rx, ul_tx, ul_cross, ul_rx, epilogue);
@@ -50,14 +56,11 @@ from isac_tpu_torch.config.params import SimulationParameters, assign_cell_param
 from isac_tpu_torch.metrics.kpi import ecdf
 from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases, time_phases
 from isac_tpu_torch.ops.pathloss import pathloss as pathloss_db
+from isac_tpu_torch.parallel.cells import network_cross_rx
 from isac_tpu_torch.parallel.links import stack_links
 from isac_tpu_torch.sim.cell import CellSimulator, _readback
 from isac_tpu_torch.topology.osm import build_city
 from isac_tpu_torch.utils.geometry import BOLTZMANN, db2pow
-
-_MESH_MSG = ("mesh= (cells across a device mesh, parallel/cells.py) is not ported yet: "
-             "ROADMAP.md Queue 1 item 2 (distribution)")
-
 
 def resolve_los(cells: list, sim: SimulationParameters) -> list:
     """The cell list with the LoS of every UE / target link resolved (the
@@ -255,8 +258,10 @@ class _CrossBank(_RayBank):
 
 class SyncNetworkRunner:
     """Lockstep multi-cell run with co-channel DL + UL interference, one fused
-    cross term per destination cell and slot. `device` (None = the card) is
-    every cell's; `mesh=` raises NotImplementedError.
+    cross term per destination cell and slot, or, with a `mesh` (a DeviceMesh
+    with a `cell` dimension) and shape-homogeneous cells, one sharded cross
+    step for every destination per slot. `device` (None = the card) is every
+    cell's.
 
     stage_s: host seconds spent in each stage (the names of the
     ``network.*`` ranges) since construction; ``banks`` (bank builds and
@@ -264,8 +269,6 @@ class SyncNetworkRunner:
 
     def __init__(self, cells: list, seed: int = 0, cross_los: dict | None = None,
                  mesh=None, ul_interference: bool = True, device=None, **cell_kwargs):
-        if mesh is not None:
-            raise NotImplementedError(_MESH_MSG)
         self.sims = [
             CellSimulator(cell, seed=seed + i, device=device, **cell_kwargs)
             for i, cell in enumerate(cells)
@@ -276,10 +279,12 @@ class SyncNetworkRunner:
         self.num_slots = n_slots.pop()
         self.seed = seed
         self.cross_los = cross_los or {}
+        self.mesh = mesh
         self.ul_interference = ul_interference
         self.banks: list | None = None  # built at the first run()
         self.ul_banks: list | None = None  # FDD only, built when first needed
         self._zero_grids: dict = {}
+        self._net_rx = None  # the mesh's cross step, set by _build_banks
         self.stage_s: dict = {}
 
     @contextlib.contextmanager
@@ -299,6 +304,16 @@ class SyncNetworkRunner:
                            seed=self.seed * 131 + d * 17)
                 for d, sim in enumerate(self.sims)
             ]
+        if self.mesh is not None:
+            shapes = {(s.n_sc, s.n_tx, s.n_ues, s.cell.gnb.dl_carrier_freq) for s in self.sims}
+            rays = {b._ff.shape[-1] for b in self.banks}
+            if len(shapes) != 1 or len(rays) != 1:
+                self.mesh = None  # heterogeneous cells cannot stack on the mesh axis
+            else:
+                self._net_rx = network_cross_rx(self.mesh)
+                self._amp_all = torch.as_tensor(
+                    np.stack([b.amp * b.active[:, None] for b in self.banks]),
+                    device=self.sims[0].dev)  # [C_dst, C_src, U]
 
     def _zero_grid(self, sim: CellSimulator) -> torch.Tensor:
         """The stand-in grid of a silent or off-channel source."""
@@ -325,6 +340,17 @@ class SyncNetworkRunner:
         with self._stage("banks"):
             h = bank.h(slot)
         return torch.einsum("xtsk,xuskat,xu->uask", tx, h, amp.to(torch.complex64))
+
+    def _dl_ext_mesh(self, slot: int, states: list) -> torch.Tensor:
+        """Every destination's DL cross term [C_dst, U, n_rx, 14, K] in one
+        sharded step (silent sources carry a zero grid and amplitude 0)."""
+        tx = torch.stack([st["port_grid"] if st is not None else self._zero_grid(self.sims[s])
+                          for s, st in enumerate(states)])
+        present = np.asarray([st is not None for st in states], np.float32)
+        amp_all = self._amp_all * torch.as_tensor(present, device=self._amp_all.device)[None, :, None]
+        with self._stage("banks"):
+            h = torch.stack([b.h(slot) for b in self.banks])  # [C_dst, C_src, U, 14, K, rx, tx]
+        return self._net_rx(tx, h, amp_all)
 
     def _ensure_ul_banks(self):
         if self.ul_banks is None:
@@ -407,11 +433,18 @@ class SyncNetworkRunner:
                     states.append(sim._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
                                   if n_dl else None)
             # 2) each receiver: serving signal + the other cells' co-channel DL
+            ext_all = None
+            if self.mesh is not None and any(st is not None for st in states):
+                with self._stage("dl_cross"):
+                    ext_all = self._dl_ext_mesh(slot, states)
             for d, (sim, info) in enumerate(zip(self.sims, infos)):
                 if states[d] is None:
                     continue
-                with self._stage("dl_cross"):
-                    ext = self._dl_ext(d, slot, states)
+                if ext_all is not None:
+                    ext = ext_all[d]
+                else:
+                    with self._stage("dl_cross"):
+                        ext = self._dl_ext(d, slot, states)
                 with self._stage("dl_rx"):
                     sim._dl_rx_phase(slot, info["csi_slot"], states[d], ext=ext)
             # 3) UL: every cell's granted uplinks first, then each gNB
@@ -456,16 +489,15 @@ def network_simulation(
     run in LOCKSTEP with cross-cell DL + UL interference (SyncNetworkRunner);
     otherwise each runs alone, on a thread pool when enable_parallel_sim (the
     reference's parfeval, networkSimulation.m:44-61; each cell owns its key
-    stream, so the results equal the sequential run's)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_MSG)
+    stream, so the results equal the sequential run's). `mesh` goes to the
+    lockstep runner (SyncNetworkRunner)."""
     sim.validate()
     cells = assign_cell_parameters(sim)
     cells, cross_los = resolve_los_cross(cells, sim)
 
     if interference and len(cells) > 1 and _has_cochannel(cells):
         results = SyncNetworkRunner(
-            cells, seed=seed, cross_los=cross_los, device=device, **cell_kwargs
+            cells, seed=seed, cross_los=cross_los, mesh=mesh, device=device, **cell_kwargs
         ).run()
     else:
         def run_one(idx_cell):

@@ -27,6 +27,7 @@ from isac_tpu_torch.ops.sensing import (
     make_cfar_config,
     music_2d_estimate,
 )
+from isac_tpu_torch.parallel.time_blocks import range_doppler_map_sharded
 from isac_tpu_torch.utils.device import resolve_device
 
 
@@ -43,6 +44,8 @@ def make_sensing_chain(
     algo: str = "FFT",
     doa_method: str = "music",
     device=None,
+    mesh=None,
+    mesh_axis: str = "time",
 ):
     """Build the sensing chain of one cell. Returns (chain, params).
 
@@ -55,7 +58,9 @@ def make_sensing_chain(
     with the RDM) or `music_2d_estimate` (algo 'MUSIC').
     params is the RadarDerived the chain works with (truth for `get_rmse`).
 
-    device: None means the card (raises without one).
+    device: None means the card (raises without one). mesh: a DeviceMesh whose
+    `mesh_axis` dimension shards the FFT chain's RDM over symbol blocks
+    (parallel/time_blocks.py); every rank passes the same grids.
     """
     dev = resolve_device(device)
     algo = algo.upper()
@@ -72,6 +77,10 @@ def make_sensing_chain(
     info, n_sc, n_tx = carrier.ofdm, carrier.n_sc, gnb.num_tx_ants
     sps = info.symbols_per_slot
     los = None if target_los is None else np.asarray(target_los, bool)
+    rdm_fn = None
+    if mesh is not None and algo == "FFT":
+        rdm_fn = range_doppler_map_sharded(mesh, num_slots * sps, n_sc, params.n_ifft,
+                                           params.n_fft, axis=mesh_axis)
 
     def chain(grids, noise_or_generator=None):
         if len(grids) != len(starts):
@@ -96,6 +105,10 @@ def make_sensing_chain(
             del rx
         if algo == "MUSIC":
             return music_2d_estimate(rx_grid, tx_grid, params, doa_method=doa_method)
-        return fft_2d_estimate(rx_grid, tx_grid, params, cfg, doa_method=doa_method)
+        rdm = None
+        if rdm_fn is not None:
+            with record_function("sensing.rdm"):
+                rdm = rdm_fn(rx_grid, tx_grid)
+        return fft_2d_estimate(rx_grid, tx_grid, params, cfg, doa_method=doa_method, rdm=rdm)
 
     return chain, params

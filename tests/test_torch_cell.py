@@ -159,8 +159,43 @@ def test_passthrough_equal():
     assert np.all(t_res["communication"]["ueDLThroughputMbps"] > 0)
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"block_slots": 2}, {"block_slots": 1}],
+TINY = dict(n_rb_override=6, nfft_override=128)
+
+
+@pytest.fixture(scope="module")
+def port_city_tiny():
+    return run_engine(True, "open_street_map_city", **TINY)
+
+
+@pytest.mark.parametrize("kw", [{"mesh": True}, {"block_slots": 2}, {"block_slots": 1}],
                          ids=["mesh", "block_slots=2", "block_slots=1"])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        PortCell(scenario_cell(True, "single_link"), device="cpu", **SMALL, **kw)
+def test_unported_options_raise(kw, port_city_tiny):
+    """mesh= and block_slots >= 1, which once raised NotImplementedError, run
+    on the CPU (the city at 6 PRB / nfft 128): the result equals the slot
+    loop's exactly, except the time-sharded RDM of a world of one (gloo),
+    which equals the serial map within RDM_TOL of its maximum with the same
+    detections."""
+    import torch.distributed as dist
+
+    from isac_tpu_torch.parallel import global_mesh, init_distributed
+
+    ref_sim, ref = port_city_tiny
+    if "mesh" in kw:
+        init_distributed(device="cpu")
+        try:
+            sim, res = run_engine(True, "open_street_map_city", **TINY,
+                                  mesh=global_mesh({"cell": 1, "time": -1}))
+        finally:
+            dist.destroy_process_group()
+    else:
+        sim, res = run_engine(True, "open_street_map_city", **TINY, **kw)
+        assert sum(sim.segment_lens) == sim.num_slots and max(sim.segment_lens) <= kw["block_slots"]
+    assert sim.metrics.trace == ref_sim.metrics.trace and len(ref_sim.metrics.trace) > 0
+    assert_kpis_equal(ref["communication"], res["communication"])
+    assert_logs_equal(ref["logs"], res["logs"])
+    want, got = ref["sensing"]["estimates"], res["sensing"]["estimates"]
+    for k in ("valid", "doa_valid", "rngEst", "velEst", "aziEst", "eleEst"):
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+    w = want["rdm"].numpy()
+    atol = RDM_TOL * float(np.abs(w).max()) if "mesh" in kw else 0
+    np.testing.assert_allclose(got["rdm"].numpy(), w, rtol=0, atol=atol)

@@ -178,8 +178,8 @@ def test_precoded_sinr_close(n_rx, n_tx, rank):
 @pytest.mark.parametrize("seed,n_rx,n_tx,nvar", [(0, 1, 4, 0.1), (1, 2, 4, 0.01), (2, 2, 16, 1.0),
                                                  (3, 4, 8, 0.01), (4, 16, 2, 0.05), (5, 4, 4, 10.0)])
 def test_ri_select_equal(seed, n_rx, n_tx, nvar):
-    """Analytic eigenvalues for n_rx <= 2, eigvalsh above (the UL case: 16
-    receive antennas at the gNB)."""
+    """Analytic eigenvalues when n_rx or n_tx is at most 2 (the UL case, 16
+    receive antennas at the gNB and 2 UE ports, included), eigvalsh above."""
     h = _channel(seed, 24, n_rx, n_tx)
     want = int(j_csi.ri_select(jnp.asarray(h), nvar, max_rank=4))
     got = int(t_csi.ri_select(_t(h), nvar, max_rank=4))

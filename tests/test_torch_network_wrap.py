@@ -7,8 +7,8 @@
   stacked and 6 active rows; their amplitudes, pathlosses and active rows
   equal the JAX runner's (built without running the JAX engine); the frame
   completes with one throughput per UE.
-- `mesh=` raises NotImplementedError in SyncNetworkRunner and
-  network_simulation; `device=None` raises without a card.
+- `mesh=` runs in SyncNetworkRunner and network_simulation at a world of one
+  (the meshless traces); `device=None` raises without a card.
 - network_simulation with interference off runs the cells alone; on a thread
   pool (enable_parallel_sim) the results equal the sequential run's, since
   each cell owns its key stream.
@@ -62,11 +62,37 @@ def test_seven_cell_wraparound_lockstep():
 
 
 def test_mesh_raises():
-    sim, cells = one_ue_cells(True, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        t_network.SyncNetworkRunner(cells, mesh=object(), device="cpu", **TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        t_network.network_simulation(sim, mesh=object(), device="cpu", **TINY)
+    """mesh=, which once raised NotImplementedError, runs in SyncNetworkRunner
+    and network_simulation at a world of one (gloo): the DL cross terms of
+    both cells come from the sharded step, and the traces equal the meshless
+    run's (integers exact, SINR within 0.05 dB)."""
+    import torch.distributed as dist
+
+    from isac_tpu_torch.parallel import global_mesh, init_distributed
+
+    runs = {}
+    init_distributed(device="cpu")
+    try:
+        mesh = global_mesh({"cell": -1})
+        for name, m in (("plain", None), ("mesh", mesh)):
+            sim, cells = one_ue_cells(True, 2)
+            sim.log = t_params.LogParams(enable_traces=True)
+            runs[name] = t_network.network_simulation(sim, mesh=m, enable_sensing=False,
+                                                      device="cpu", **TINY)
+        _, cells = one_ue_cells(True, 2)
+        runner = t_network.SyncNetworkRunner(cells, mesh=mesh, enable_sensing=False,
+                                             device="cpu", **TINY)
+        runner._build_banks()
+        assert runner.mesh is mesh and runner._net_rx is not None
+    finally:
+        dist.destroy_process_group()
+    keys = ("slot", "dir", "ue", "mcs", "n_prb", "tbs", "crc", "rv")
+    for a, b in zip(runs["plain"]["cells"], runs["mesh"]["cells"]):
+        ta, tb = a["communication"]["trace"], b["communication"]["trace"]
+        assert len(ta) == len(tb) > 0
+        for x, y in zip(ta, tb):
+            assert tuple(x[k] for k in keys) == tuple(y[k] for k in keys)
+            assert abs(float(x["sinr_db"]) - float(y["sinr_db"])) <= 0.05
 
 
 def test_device_none_needs_a_card(monkeypatch):

@@ -4,6 +4,7 @@ Everything here is integer, bit or host float64 data that the port keeps
 its own numpy copy of, so every comparison is exact.
 """
 
+import ast
 import json
 import os
 import pkgutil
@@ -170,9 +171,9 @@ def test_grant_layout_equal(kw):
 
 
 def test_port_imports_neither_jax_nor_isac_tpu():
-    """Every module of isac_tpu_torch imports in a fresh interpreter without
-    pulling in jax or isac_tpu, nor matplotlib (viz.py imports it on first
-    use only)."""
+    """Every module of isac_tpu_torch, and tools/torch_mp_worker.py, imports
+    in a fresh interpreter without pulling in jax or isac_tpu, nor matplotlib
+    (viz.py imports it on first use only)."""
     mods = [m.name for m in pkgutil.walk_packages(isac_tpu_torch.__path__, "isac_tpu_torch.")]
     # a sub-package without __init__.py would silently drop out of the walk
     for m in ("parallel.links", "example", "config.params", "config.scenarios", "ops.ofdm",
@@ -182,11 +183,22 @@ def test_port_imports_neither_jax_nor_isac_tpu():
               "mac.pdu", "mac.scheduler", "rlc.um", "rlc.am", "app.traffic", "metrics.kpi",
               "metrics.logger", "utils.prng", "profile_cell", "topology.blockages",
               "topology.osm", "topology.wraparound", "sim.network", "metrics.persist",
-              "api", "viz", "profile_network"):
+              "api", "viz", "profile_network", "sim.block", "parallel.mesh",
+              "parallel.distributed", "parallel.cells", "parallel.time_blocks"):
         assert f"isac_tpu_torch.{m}" in mods, m
+    # the torch-only multi-process worker: no jax / isac_tpu import anywhere in
+    # it (also not inside its functions), and its module imports clean
+    worker = REPO / "tools" / "torch_mp_worker.py"
+    for node in ast.walk(ast.parse(worker.read_text())):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+        for n in names:
+            assert n.split(".")[0] not in ("jax", "jaxlib", "isac_tpu"), n
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('torch_mp_worker', {str(worker)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'isac_tpu', 'matplotlib'))\n"
         "assert not bad, bad\n"
