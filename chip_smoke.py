@@ -116,6 +116,20 @@ gives a non-zero exit code and no final result line):
      its time-sharded RDM within 2e-5 of max|RDM| of the serial map of the
      same engine and the same detections. The process group is destroyed at
      the end.
+  10. seven co-channel cells of multi_cell at 273 PRB (example_network(7):
+     the 500 m hex centre cell and its first ring, 5 UEs and one target a
+     cell, DL + UL interference, seed 0): the UE and cross-link LoS maps
+     exact, then one untimed frame with sensing, held to the JAX network
+     (NETWORK7_EXPECT: per-UE TB counts and CRC failures exact, throughputs
+     within 1%; detections under the split rule, with the eigenvalues of the
+     card's own covariance recorded from music_doa: valid flags exact, ranges
+     and velocities within 0.5, the azimuths of the clean part of the signal
+     subspace within 0.5 deg, the rest finite), every decoder input through
+     the layered kernel and its plain version (bit-equal posteriors); then
+     three frames without sensing on fresh runners, each timed
+     (network7_slot_ms, network7_cell_slots_per_s, the bank build's seconds,
+     host ms per slot of each network.* stage, peak memory), held to the same
+     counts, with kernel launches = sch_receive_batch calls.
 Then one JSON line of per-kernel numbers, the nvidia-smi line again, and last
 {"ok": true, "device": {...}}.
 
@@ -1285,7 +1299,6 @@ def phase_network_full(dev):
     import torch
 
     from isac_tpu_torch.example import example_network
-    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
 
     t0 = time.perf_counter()
     runner = example_network(device=dev, traces=True)
@@ -1315,52 +1328,318 @@ def phase_network_full(dev):
     del seen, runner, results
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
+    result, launches = _timed_network_frames(dev, 2, NETWORK_EXPECT["cells"], "network")
+    result.update(untimed_peak_memory_mb=untimed_peak_mb, setup_s=setup_s)
+    print("network 273 PRB x16 ports x2 cells x5 UEs, one frame, DL + UL interference, "
+          "medians: " + json.dumps(result), flush=True)
+    return result, launches, kernel_err
+
+
+NETWORK_COUNT_KEYS = ("dl_tbs", "dl_crc_fail", "ul_tbs", "ul_crc_fail", "dl_mbps", "ul_mbps")
+
+
+def _timed_network_frames(dev, num_cells, exp_cells, metric):
+    """NETWORK_READINGS frames of example_network(num_cells) without sensing,
+    each on a fresh runner of seed 0 and timed on the host clock after
+    synchronize (the bank build, which run() would do lazily, inside the
+    frame and also timed on its own), each held to the counts of `exp_cells`,
+    with kernel launches = sch_receive_batch calls. Returns (medians and
+    readings named after `metric`, kernel launches of the first frame)."""
+    import torch
+
+    from isac_tpu_torch.example import example_network
+    from isac_tpu_torch.ops.ldpc_layered import decode_layered_cuda
+
     reads = []
     for _ in range(NETWORK_READINGS):
-        runner = example_network(device=dev, sensing=False)
+        runner = example_network(num_cells=num_cells, device=dev, sensing=False)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         decode_layered_cuda.launches = 0
         t1 = time.perf_counter()
+        runner._build_banks()
+        torch.cuda.synchronize()
+        bank_s = time.perf_counter() - t1
         results = runner.run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         launches = decode_layered_cuda.launches
         rx_calls = sum(s.rx_calls for s in runner.sims)
         if launches != rx_calls or rx_calls <= 0:
-            raise AssertionError(f"network: {launches} kernel launches for {rx_calls} "
+            raise AssertionError(f"{metric}: {launches} kernel launches for {rx_calls} "
                                  f"sch_receive_batch calls")
         outs = _network_outcome(runner, results)
-        for c, (out, exp) in enumerate(zip(outs, NETWORK_EXPECT["cells"])):
-            no_sensing = {k: v for k, v in exp.items()
-                          if k != "detections" and k not in CELL_EST_TOL}
-            _check_against(out, no_sensing, f"network timed frame {len(reads)} cell {c}")
+        for c, (out, exp) in enumerate(zip(outs, exp_cells)):
+            _check_against(out, {k: exp[k] for k in NETWORK_COUNT_KEYS},
+                           f"{metric} timed frame {len(reads)} cell {c}")
         n = runner.num_slots
         reads.append({
-            "network_frame_s": secs, "network_slot_ms": secs * 1e3 / n,
-            "network_cell_slots_per_s": len(runner.sims) * n / secs,
+            f"{metric}_frame_s": secs, f"{metric}_slot_ms": secs * 1e3 / n,
+            f"{metric}_cell_slots_per_s": num_cells * n / secs, "bank_build_s": bank_s,
             "ldpc_layered_launches": launches, "sch_receive_batch_calls": rx_calls,
             "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
             "stage_host_ms_per_slot": {k: round(v * 1e3 / n, 3)
                                        for k, v in runner.stage_s.items()},
             "dl_crc_fail": [sum(o["dl_crc_fail"]) for o in outs],
         })
-        print(f"network 273 PRB x2 cells timed frame {len(reads) - 1}: " + json.dumps(reads[-1]),
-              flush=True)
+        print(f"{metric} 273 PRB x{num_cells} cells timed frame {len(reads) - 1}: "
+              + json.dumps(reads[-1]), flush=True)
         del runner, results
-    mid = sorted(reads, key=lambda r: r["network_frame_s"])[NETWORK_READINGS // 2]
-    result = {
-        "network_slot_ms": mid["network_slot_ms"],
-        "network_cell_slots_per_s": mid["network_cell_slots_per_s"],
-        "network_slot_ms_readings": [r["network_slot_ms"] for r in reads],
-        "network_cell_slots_per_s_readings": [r["network_cell_slots_per_s"] for r in reads],
+        torch.cuda.empty_cache()
+    mid = sorted(reads, key=lambda r: r[f"{metric}_frame_s"])[NETWORK_READINGS // 2]
+    return {
+        f"{metric}_slot_ms": mid[f"{metric}_slot_ms"],
+        f"{metric}_cell_slots_per_s": mid[f"{metric}_cell_slots_per_s"],
+        f"{metric}_slot_ms_readings": [r[f"{metric}_slot_ms"] for r in reads],
+        f"{metric}_cell_slots_per_s_readings": [r[f"{metric}_cell_slots_per_s"] for r in reads],
+        "stage_host_ms_per_slot": mid["stage_host_ms_per_slot"],
+        "bank_build_s_readings": [r["bank_build_s"] for r in reads],
         "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
         "peak_memory_mb": max(r["peak_memory_mb"] for r in reads),
-        "untimed_peak_memory_mb": untimed_peak_mb, "setup_s": setup_s,
-    }
-    print("network 273 PRB x16 ports x2 cells x5 UEs, one frame, DL + UL interference, "
+    }, reads[0]["ldpc_layered_launches"]
+
+
+# What the JAX package does in the 7-cell network at full width, seed 0, on
+# its CPU backend: `PYTHONPATH=. python tools/network_reference_constants.py
+# --num-cells 7` (jax 0.9.0; PERF.md section 4). Cross links not listed are
+# NLoS for every UE.
+NETWORK7_EXPECT = {
+    "num_cells": 7, "n_rb": 273, "nfft": 4096, "n_tx": 16, "n_ues": 5,
+    "cross_los": {},
+    "cells": [
+        {"ue_los": [False, False, False, False, True],
+         "dl_tbs": [12, 14, 11, 11, 10],
+         "dl_crc_fail": [7, 4, 9, 7, 0],
+         "ul_tbs": [4, 4, 5, 5, 4],
+         "ul_crc_fail": [0, 0, 1, 1, 0],
+         "dl_mbps": [55.784, 64.0728, 53.7936, 71.8272, 48.1472],
+         "ul_mbps": [8.5264, 8.5264, 10.8832, 10.8832, 6.5328],
+         "valid": [True, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [86.6099624633789, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "velEst": [9.12436580657959, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "aziEst": [-22.0, None, None, None]},
+        {"ue_los": [False, True, True, True, False],
+         "dl_tbs": [10, 12, 10, 10, 12],
+         "dl_crc_fail": [3, 1, 0, 1, 4],
+         "ul_tbs": [4, 4, 4, 4, 4],
+         "ul_crc_fail": [0, 0, 0, 0, 0],
+         "dl_mbps": [53.5816, 50.4576, 49.4808, 50.2008, 54.092],
+         "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+         "valid": [True, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [123.20572662353516, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "velEst": [4.562182903289795, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "aziEst": [18.0, None, None, None]},
+        {"ue_los": [False, False, False, True, False],
+         "dl_tbs": [12, 12, 11, 12, 12],
+         "dl_crc_fail": [6, 1, 4, 3, 3],
+         "ul_tbs": [4, 4, 4, 4, 4],
+         "ul_crc_fail": [0, 0, 0, 0, 0],
+         "dl_mbps": [55.548, 53.3264, 60.1664, 69.06, 54.9576],
+         "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+         "valid": [False, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [None, None, None, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None],
+         "velEst": [None, None, None, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None],
+         "aziEst": [-68.0, None, None, None]},
+        {"ue_los": [False, True, True, True, True],
+         "dl_tbs": [12, 12, 10, 12, 10],
+         "dl_crc_fail": [8, 1, 0, 4, 0],
+         "ul_tbs": [4, 4, 4, 4, 4],
+         "ul_crc_fail": [0, 0, 0, 0, 0],
+         "dl_mbps": [61.9824, 47.2176, 49.4808, 60.9856, 48.3528],
+         "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+         "valid": [True, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [136.62417602539062, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "velEst": [4.562182903289795, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "aziEst": [-56.0, None, None, None]},
+        {"ue_los": [False, False, False, True, False],
+         "dl_tbs": [13, 12, 10, 9, 10],
+         "dl_crc_fail": [10, 1, 4, 2, 6],
+         "ul_tbs": [5, 4, 5, 4, 5],
+         "ul_crc_fail": [1, 0, 2, 0, 2],
+         "dl_mbps": [54.4992, 53.5744, 43.9072, 49.3832, 34.1544],
+         "ul_mbps": [10.8832, 8.5264, 10.4248, 8.5264, 8.8896],
+         "valid": [False, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [None, None, None, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None],
+         "velEst": [None, None, None, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None],
+         "aziEst": [17.0, None, None, None]},
+        {"ue_los": [False, False, False, False, False],
+         "dl_tbs": [13, 13, 9, 10, 12],
+         "dl_crc_fail": [6, 1, 3, 0, 3],
+         "ul_tbs": [5, 4, 4, 4, 4],
+         "ul_crc_fail": [3, 0, 0, 0, 0],
+         "dl_mbps": [51.26, 51.2688, 44.8208, 50.2008, 54.296],
+         "ul_mbps": [10.4248, 8.5264, 8.5264, 8.5264, 6.5328],
+         "valid": [False, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [None, None, None, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None],
+         "velEst": [None, None, None, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None],
+         "aziEst": [-61.0, None, None, None]},
+        {"ue_los": [True, False, True, True, True],
+         "dl_tbs": [10, 13, 10, 11, 10],
+         "dl_crc_fail": [0, 1, 0, 1, 0],
+         "ul_tbs": [4, 4, 4, 4, 4],
+         "ul_crc_fail": [0, 0, 0, 0, 0],
+         "dl_mbps": [49.4808, 51.4776, 49.4808, 52.6584, 48.3528],
+         "ul_mbps": [8.5264, 8.5264, 8.5264, 8.5264, 6.5328],
+         "valid": [True, False, False, False, False, False, False, False, False, False, False,
+                  False, False, False, False, False],
+         "doa_valid": [True, False, False, False],
+         "rngEst": [154.9220428466797, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "velEst": [4.562182903289795, None, None, None, None, None, None, None, None, None, None,
+                   None, None, None, None, None],
+         "aziEst": [-5.0, None, None, None]},
+    ],
+}
+# The split of Ra's eigenvalues at j is clean when (lam_j - lam_{j+1}) / lam_1
+# >= SPLIT_TAU (tests/test_torch_network.py): MUSIC's peaks after the last
+# clean split within the signal count depend on the basis that the
+# eigensolver returns for a cluster of noise eigenvalues equal to rounding.
+SPLIT_TAU = 1e-4
+
+
+@contextlib.contextmanager
+def _recording_music():
+    """Within the block, the covariance of every call of the port's MUSIC DoA
+    is kept (as complex128 numpy) in the yielded list, in call order."""
+    import numpy as np
+
+    from isac_tpu_torch.ops import sensing
+
+    seen = []
+    real = sensing.music_doa
+
+    def recorder(ra, params, **kw):
+        seen.append(ra.detach().cpu().numpy().astype(np.complex128))
+        return real(ra, params, **kw)
+
+    sensing.music_doa = recorder
+    try:
+        yield seen
+    finally:
+        sensing.music_doa = real
+
+
+def _clean_signal_count(ra, n_sig):
+    """The largest j <= n_sig whose eigenvalue split of `ra` is clean, or 0."""
+    import numpy as np
+
+    lam = np.linalg.eigvalsh(ra)[::-1]
+    gaps = (lam[:-1] - lam[1:]) / lam[0]
+    return max((j for j in range(1, n_sig + 1) if gaps[j - 1] >= SPLIT_TAU), default=0)
+
+
+def _check_split_rule(est, ra, exp, what):
+    """One cell's detections against the JAX package's under the split rule:
+    valid and doa_valid exact, ranges and velocities within CELL_EST_TOL, the
+    first m azimuths within CELL_EST_TOL, the next n - m finite where
+    doa_valid is set, the rest NaN in both. Returns (m, n)."""
+    import numpy as np
+
+    got = {k: est[k].cpu().numpy() for k in ("valid", "doa_valid", "rngEst", "velEst", "aziEst")}
+    want = {k: np.asarray([np.nan if x is None else x for x in exp[k]], np.float64)
+            for k in ("rngEst", "velEst", "aziEst")}
+    for k in ("valid", "doa_valid"):
+        if got[k].tolist() != exp[k]:
+            raise AssertionError(f"{what}: {k} {got[k].tolist()}, the JAX package's {exp[k]}")
+    n = int(np.clip(got["valid"].sum(), 1, len(got["aziEst"])))
+    m = _clean_signal_count(ra, n)
+
+    def close(k, sl):
+        g, w = got[k][sl].astype(np.float64), want[k][sl]
+        return (np.array_equal(np.isnan(g), np.isnan(w))
+                and bool(np.all(np.abs(g - w)[~np.isnan(w)] <= CELL_EST_TOL[k])))
+
+    doa = got["doa_valid"][m:n]
+    ok = (close("rngEst", slice(None)) and close("velEst", slice(None))
+          and close("aziEst", slice(0, m)) and close("aziEst", slice(n, None))
+          and np.isfinite(got["aziEst"][m:n][doa]).all())
+    if not ok:
+        raise AssertionError(f"{what}: detections {got}, the JAX package's {exp} "
+                             f"(m {m} of n {n})")
+    return m, n
+
+
+def phase_network7(dev):
+    """Phase 10: seven co-channel cells at 273 PRB. Returns launches of the
+    first timed frame and the max kernel error."""
+    import torch
+
+    from isac_tpu_torch.example import example_network
+
+    exp = NETWORK7_EXPECT
+    t0 = time.perf_counter()
+    runner = example_network(num_cells=7, device=dev, traces=True)
+    s0 = runner.sims[0]
+    if (len(runner.sims), s0.n_rb, s0.info.nfft, s0.n_tx, s0.n_ues) != tuple(
+            exp[k] for k in ("num_cells", "n_rb", "nfft", "n_tx", "n_ues")):
+        raise AssertionError(f"network7: {len(runner.sims)} cells, {s0.n_rb} PRB, "
+                             f"nfft {s0.info.nfft}, {s0.n_tx} ports, {s0.n_ues} UEs")
+    for c, (sim, e) in enumerate(zip(runner.sims, exp["cells"])):
+        if sim.cell.ue_los.tolist() != e["ue_los"]:
+            raise AssertionError(f"network7 cell {c}: UE LoS {sim.cell.ue_los.tolist()}")
+    want_cross = {(d, s): exp["cross_los"].get((d, s), [False] * s0.n_ues)
+                  for d in range(7) for s in range(7) if d != s}
+    if {k: v.tolist() for k, v in runner.cross_los.items()} != want_cross:
+        raise AssertionError(f"network7: cross LoS {runner.cross_los}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    runner._build_banks()
+    torch.cuda.synchronize()
+    bank_build_s = time.perf_counter() - t1
+    with _recording_layered() as seen, _recording_music() as ras:
+        results = runner.run()
+    untimed_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    if len(ras) != 7:
+        raise AssertionError(f"network7: {len(ras)} MUSIC calls for 7 cells")
+    splits = []
+    for c, (sim, res, e, ra) in enumerate(zip(runner.sims, results, exp["cells"], ras)):
+        _check_against(_cell_outcome(sim, res), {k: e[k] for k in NETWORK_COUNT_KEYS},
+                       f"network7 untimed frame cell {c}")
+        splits.append(_check_split_rule(res["sensing"]["estimates"], ra, e,
+                                        f"network7 untimed frame cell {c}"))
+    kernel_err, shapes = _kernel_equals_plain(seen, "the 7-cell 273-PRB network frame's LLRs")
+    fails = [sum(c.blk_err for c in sim.metrics.dl) for sim in runner.sims]
+    retx = [sum(1 for t in sim.metrics.trace if t["rv"] != 0) for sim in runner.sims]
+    print(f"network7 273 PRB x7 cells untimed frame (sensing on): the JAX network's counts "
+          f"(failed DL blocks {fails}, retransmissions {retx}), cross LoS map exact, "
+          f"detections under the split rule (m, n per cell {splits}); kernel bit-equal to its "
+          f"plain version on all {len(seen)} decoder inputs of "
+          f"{sum(s.rx_calls for s in runner.sims)} receives, (bg, z, codewords) {shapes}; "
+          f"bank build {bank_build_s:.2f} s; peak memory {untimed_peak_mb:.0f} MB", flush=True)
+    del seen, ras, runner, results
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    result, launches = _timed_network_frames(dev, 7, exp["cells"], "network7")
+    result.update(untimed_bank_build_s=bank_build_s, untimed_peak_memory_mb=untimed_peak_mb,
+                  setup_s=setup_s, card=_smi_line())
+    print("network7 273 PRB x16 ports x7 cells x5 UEs, one frame, DL + UL interference, "
           "medians: " + json.dumps(result), flush=True)
-    return result, reads[0]["ldpc_layered_launches"], kernel_err
+    return launches, kernel_err
 
 
 # Float tolerances for a result surface that two slot-loop frames of one seed
@@ -1699,10 +1978,16 @@ def main() -> int:
     block_launches = phase_block_mode(dev, cell_res["cell_slot_ms"])
     torch.cuda.empty_cache()
     mesh_link_launches = phase_distributed(dev)
+    torch.cuda.empty_cache()
+
+    # phase 10: seven co-channel cells at full width (the same kernel)
+    t10 = time.perf_counter()
+    net7_launches, net7_err = phase_network7(dev)
+    max_err = max(max_err, net7_err)
     t_end = time.perf_counter()
     print(f"script seconds after import: {t_end - t_start:.1f} in all, phases 1-6 "
           f"{t7 - t_start:.1f}, phase 7 {t8 - t7:.1f}, phase 8 {t9 - t8:.1f}, "
-          f"phase 9 {t_end - t9:.1f}", flush=True)
+          f"phase 9 {t10 - t9:.1f}, phase 10 {t_end - t10:.1f}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "ldpc_layered", "route": "cuda",
@@ -1712,7 +1997,8 @@ def main() -> int:
         "launches_by_path": {"link_step": res["ldpc_layered_launches"],
                              "dl_loop": loop_launches["dl"], "ul_loop": loop_launches["ul"],
                              "cell": cell_launches, "network": net_launches,
-                             "block": block_launches, "mesh_link": mesh_link_launches},
+                             "block": block_launches, "mesh_link": mesh_link_launches,
+                             "network7": net7_launches},
         "max_abs_err": max_err,
         "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],

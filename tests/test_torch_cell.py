@@ -50,6 +50,9 @@ MODES = {
     "TTI4": (lambda P, c: replace(c, gnb=replace(c.gnb, scheduling_type="symbol")), {}),
     "row5": (lambda P, c: replace(c, gnb=replace(c.gnb, antenna=P.ULA(n_v=2, polarizations=2))),
              {}),
+    # range / velocity by 2D MUSIC in run_sensing, DoA as in the FFT chain
+    "MUSIC": (lambda P, c: replace(c, gnb=replace(c.gnb, radar=replace(
+        c.gnb.radar, est_algorithm="MUSIC"))), {}),
     # gNB at 10 dBm, UE at -35 dBm: DL and UL blocks fail and are retransmitted
     "retx": (lambda P, c: replace(c, gnb=replace(c.gnb, tx_power_dbm=10.0),
                                   ue=replace(c.ue, tx_power_dbm=-35.0)), {}),

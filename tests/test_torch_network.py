@@ -71,6 +71,46 @@ def assert_sensing_equal(jr: dict, tr: dict):
     assert tr["rmse"]["numMatched"] == jr["rmse"]["numMatched"]
 
 
+# MUSIC takes the CFAR detection count as its signal count n. The split of
+# the eigenvalues of Ra at j is clean when (lam_j - lam_{j+1}) / lam_1 >=
+# SPLIT_TAU: about a thousand float32 ulps of ||Ra||, so that a rounding error
+# turns the subspace on either side by at most ~1e-3 rad (Davis-Kahan). Inside
+# a cluster of noise eigenvalues that agree to rounding, the basis that an
+# eigensolver returns is arbitrary, and so is every peak that depends on it.
+SPLIT_TAU = 1e-4
+
+
+def clean_signal_count(ra, n_sig: int) -> int:
+    """m: the largest j <= n_sig whose eigenvalue split of `ra` is clean, or 0."""
+    lam = np.linalg.eigvalsh(np.asarray(ra, np.complex128))[::-1]
+    gaps = (lam[:-1] - lam[1:]) / lam[0]
+    return max((j for j in range(1, n_sig + 1) if gaps[j - 1] >= SPLIT_TAU), default=0)
+
+
+def assert_sensing_split_equal(jr: dict, tr: dict, ra) -> tuple:
+    """assert_sensing_equal, with the azimuths held under the split rule: with
+    n the signal count and m = clean_signal_count(ra, n) from the port's
+    covariance `ra`, the first m azimuths are exact and the next n - m only
+    finite where doa_valid is set; every other output as assert_sensing_equal
+    holds it. Returns (m, n)."""
+    want = {k: np.asarray(v) for k, v in jr["estimates"].items()}
+    got = {k: v.numpy() for k, v in tr["estimates"].items()}
+    assert got.keys() == want.keys()
+    for k in ("valid", "doa_valid", "rngEst", "velEst", "eleEst"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_allclose(got["rdm"], want["rdm"], rtol=0,
+                               atol=RDM_TOL * float(np.abs(want["rdm"]).max()))
+    assert tr["rmse"]["numMatched"] == jr["rmse"]["numMatched"]
+    n = int(np.clip(want["valid"].sum(), 1, len(want["aziEst"])))
+    m = clean_signal_count(ra, n)
+    np.testing.assert_array_equal(got["aziEst"][:m], want["aziEst"][:m], err_msg="aziEst")
+    np.testing.assert_array_equal(got["aziEst"][n:], want["aziEst"][n:], err_msg="aziEst")
+    doa = got["doa_valid"][m:n]
+    assert np.isfinite(got["aziEst"][m:n][doa]).all() and np.isfinite(
+        want["aziEst"][m:n][doa]).all()
+    return m, n
+
+
 def assert_cells_equal(want: list, got: list):
     assert len(got) == len(want)
     for jr, tr in zip(want, got):

@@ -8,18 +8,22 @@ chip_smoke.py phase 8 drives on the card, and prints one JSON object:
   whose line of sight the synthetic city resolves, one target, seed 0, one
   frame), with what its result dict carries: per-UE DL/UL BLER and
   throughput, the detections (range, velocity, azimuth);
-- "network": `multi_cell(num_cells=2)` through `resolve_los_cross` and the
-  lockstep `SyncNetworkRunner` with DL + UL co-channel interference and
-  traces (seed 0, sensing on), per cell: the LoS of its UEs, transport block
-  counts, CRC failures, BLER, throughputs, detections and the per-slot
-  trace's integer fields; plus the cross-cell LoS map and the network totals.
+- "network": `multi_cell(num_cells)` (2 cells unless `--num-cells` says
+  otherwise; chip_smoke.py phase 8c runs 2, phase 10 runs 7) through
+  `resolve_los_cross` and the lockstep `SyncNetworkRunner` with DL + UL
+  co-channel interference and traces (seed 0, sensing on), per cell: the LoS
+  of its UEs, transport block counts, CRC failures, BLER, throughputs,
+  detections (with the DoA valid flags) and the per-slot trace's integer
+  fields; plus the cross-cell LoS map and the network totals.
 
 Run from the repository root:
 
-    PYTHONPATH=. python tools/network_reference_constants.py [--n-rb N --nfft N] > out.json
+    PYTHONPATH=. python tools/network_reference_constants.py [--num-cells N] \
+        [--n-rb N --nfft N] > out.json
 
-(without arguments: the full width; the network takes ~6 GB of memory and
-a few minutes on a CPU, the city entry ~3 GB and about a minute).
+(without arguments: 2 cells at the full width; the network takes ~6 GB of
+memory and a few minutes on a CPU, the city entry ~3 GB and about a minute.
+Seven cells at the full width hold seven engines and seven banks of 35 links.)
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ def _result_numbers(res: dict) -> dict:
         est = sen["estimates"]
         out["detections"] = int(np.asarray(est["valid"], bool).sum())
         out.update({k: _floats(est[k]) for k in ("rngEst", "velEst", "aziEst")})
+        out.update({k: [bool(x) for x in np.asarray(est[k], bool)]
+                    for k in ("valid", "doa_valid")})
         out["rmse"] = {k: float(v) for k, v in sen["rmse"].items()
                        if k.endswith("RMSE") or k.startswith("num")}
     return out
@@ -72,8 +78,8 @@ def city_entry(n_rb, nfft) -> dict:
             "totalULThroughputMbps": res["network"]["totalULThroughputMbps"]}
 
 
-def network(n_rb, nfft) -> dict:
-    sim = multi_cell(SimulationParameters(), num_cells=2)
+def network(n_rb, nfft, num_cells) -> dict:
+    sim = multi_cell(SimulationParameters(), num_cells=num_cells)
     sim.validate()
     cells, cross_los = resolve_los_cross(assign_cell_parameters(sim), sim)
     cells = [replace(c, log=replace(c.log, enable_traces=True)) for c in cells]
@@ -108,10 +114,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-rb", type=int, default=None)
     ap.add_argument("--nfft", type=int, default=None)
+    ap.add_argument("--num-cells", type=int, default=2)
     args = ap.parse_args()
     out = {"jax": jax.__version__,
            "city_entry": city_entry(args.n_rb, args.nfft),
-           "network": network(args.n_rb, args.nfft)}
+           "network": network(args.n_rb, args.nfft, args.num_cells)}
     out["peak_rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
     print(json.dumps(out))
 
