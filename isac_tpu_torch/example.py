@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from dataclasses import replace
 
@@ -232,28 +231,23 @@ class LinkLoop:
         chosen rank's report is kept per UE and returned."""
         if noise is None:
             noise = self.draw_noise(rng, "csi_report")
-        with record_function("csi.channel"):
-            rx_all = torch.einsum("tsk,uskat->uask", self.csirs, self.h_dl) + noise
+        rx_all = torch.einsum("tsk,uskat->uask", self.csirs, self.h_dl) + noise
         dev_reports = []
         for u in range(self.n_ues):
-            with record_function("csi.estimate"):
-                h = csirs_estimate_fdm(rx_all, self.slot, self.n_id, self.n_prb, self.n_tx,
-                                       ue_index=u)
-            with record_function("csi.ri_select"):
-                rank = ri_select(h, self.sigma2_csi, max_rank=self.max_rank)
-            with record_function("csi.cqi_select"):
-                reps = [cqi_select(h, self.sigma2_csi, r, self.n1, self.n2,
-                                   subband_of_re=self.sb_of_prb, ng=self.ng)
-                        for r in range(1, self.max_rank + 1)]
+            h = csirs_estimate_fdm(rx_all, self.slot, self.n_id, self.n_prb, self.n_tx,
+                                   ue_index=u)
+            rank = ri_select(h, self.sigma2_csi, max_rank=self.max_rank)
+            reps = [cqi_select(h, self.sigma2_csi, r, self.n1, self.n2,
+                               subband_of_re=self.sb_of_prb, ng=self.ng)
+                    for r in range(1, self.max_rank + 1)]
             dev_reports.append((rank, reps, h))
-        with record_function("csi.readback"):
-            out = []
-            for rank, reps, h in dev_reports:
-                r = int(rank)
-                rep = reps[r - 1]
-                out.append({"rank": r, "pmi_sb": rep["pmi_sb"].cpu().numpy(),
-                            "cqi_sb": rep["cqi_sb"].cpu().numpy(),
-                            "sinr_db_sb": rep["sinr_db_sb"].cpu().numpy(), "h_est": h})
+        out = []
+        for rank, reps, h in dev_reports:
+            r = int(rank)
+            rep = reps[r - 1]
+            out.append({"rank": r, "pmi_sb": rep["pmi_sb"].cpu().numpy(),
+                        "cqi_sb": rep["cqi_sb"].cpu().numpy(),
+                        "sinr_db_sb": rep["sinr_db_sb"].cpu().numpy(), "h_est": h})
         self.dl_csi = out
         return out
 
@@ -262,27 +256,22 @@ class LinkLoop:
         TPMI candidates; the chosen rank's is kept per UE and returned."""
         if noise is None:
             noise = self.draw_noise(rng, "srs_report")
-        with record_function("srs.channel"):
-            rx = torch.einsum("utsk,uskat->ask", self.srs, self.h_ul) + noise
+        rx = torch.einsum("utsk,uskat->ask", self.srs, self.h_ul) + noise
         dev_reports = []
         for u in range(self.n_ues):
-            with record_function("srs.estimate"):
-                h, _ = srs_estimate_ports(rx, self.n_prb, self.n_ue_ants, symbol=13, comb=4,
-                                          comb_offset=u % 4, per_prb=True)
-            with record_function("srs.ri_select"):
-                rank = ri_select(h, self.sigma2_ul, max_rank=self.max_rank)
-            with record_function("srs.tpmi_select"):
-                cands = [ul_tpmi_select(h, self.sigma2_ul, r, subband_of_re=self.sb_of_prb)
-                         for r in range(1, self.max_rank + 1)]
+            h, _ = srs_estimate_ports(rx, self.n_prb, self.n_ue_ants, symbol=13, comb=4,
+                                      comb_offset=u % 4, per_prb=True)
+            rank = ri_select(h, self.sigma2_ul, max_rank=self.max_rank)
+            cands = [ul_tpmi_select(h, self.sigma2_ul, r, subband_of_re=self.sb_of_prb)
+                     for r in range(1, self.max_rank + 1)]
             dev_reports.append((rank, cands, h))
-        with record_function("srs.readback"):
-            out = []
-            for rank, cands, h in dev_reports:
-                r = int(rank)
-                tpmi, sinr_db_sb = cands[r - 1]
-                sdb = sinr_db_sb.cpu().numpy()
-                out.append({"rank": r, "tpmi": int(tpmi), "sinr_db_sb": sdb,
-                            "cqi_sb": loop_ul_cqi(sdb), "h_est": h})
+        out = []
+        for rank, cands, h in dev_reports:
+            r = int(rank)
+            tpmi, sinr_db_sb = cands[r - 1]
+            sdb = sinr_db_sb.cpu().numpy()
+            out.append({"rank": r, "tpmi": int(tpmi), "sinr_db_sb": sdb,
+                        "cqi_sb": loop_ul_cqi(sdb), "h_est": h})
         self.ul_csi = out
         return out
 
@@ -357,23 +346,19 @@ class LinkLoop:
         if noise is None:
             noise = self.draw_noise(rng, "dl_slot")
         groups = loop_group(grants)
-        with record_function("pdsch.tx"):
-            port_grid = self.csirs
-            for idx in groups.values():
-                port_grid = port_grid + sch_transmit_batch(
-                    [tbs[i] for i in idx], [grants[i] for i in idx], [ws[i] for i in idx],
-                    reduce_sum=True, device=self.dev)
-        with record_function("pdsch.channel"):
-            rx_all = torch.einsum("tsk,uskat->uask", port_grid, self.h_dl) + noise
+        port_grid = self.csirs
+        for idx in groups.values():
+            port_grid = port_grid + sch_transmit_batch(
+                [tbs[i] for i in idx], [grants[i] for i in idx], [ws[i] for i in idx],
+                reduce_sum=True, device=self.dev)
+        rx_all = torch.einsum("tsk,uskat->uask", port_grid, self.h_dl) + noise
         outs = {}
-        with record_function("pdsch.rx"):
-            for key, idx in groups.items():
-                outs[key] = sch_receive_batch(
-                    rx_all, [grants[i] for i in idx], [bufs[i] for i in idx],
-                    rx_indices=np.asarray(idx))
-                self.rx_calls += 1
-        with record_function("pdsch.readback"):
-            return self._finish("DL", grants, tbs, outs, groups)
+        for key, idx in groups.items():
+            outs[key] = sch_receive_batch(
+                rx_all, [grants[i] for i in idx], [bufs[i] for i in idx],
+                rx_indices=np.asarray(idx))
+            self.rx_calls += 1
+        return self._finish("DL", grants, tbs, outs, groups)
 
     def ul_slot(self, rng: np.random.Generator, noise=None) -> list:
         """One UL slot: PUSCH of every UE through its own channel, summed at the
@@ -381,22 +366,18 @@ class LinkLoop:
         grants, tbs, ws, bufs = self._grants("UL", rng)
         groups = loop_group(grants)
         rx = self.draw_noise(rng, "ul_slot") if noise is None else noise
-        with record_function("pusch.tx"):
-            for idx in groups.values():
-                grids = sch_transmit_batch(
-                    [tbs[i] for i in idx], [grants[i] for i in idx], [ws[i] for i in idx],
-                    reduce_sum=False, device=self.dev)  # [n, UE ants, 14, K]
-                with record_function("pusch.channel"):
-                    h = self.h_ul[self._t(np.asarray(idx, np.int64))]
-                    rx = rx + torch.einsum("utsk,uskat->ask", grids, h)
+        for idx in groups.values():
+            grids = sch_transmit_batch(
+                [tbs[i] for i in idx], [grants[i] for i in idx], [ws[i] for i in idx],
+                reduce_sum=False, device=self.dev)  # [n, UE ants, 14, K]
+            h = self.h_ul[self._t(np.asarray(idx, np.int64))]
+            rx = rx + torch.einsum("utsk,uskat->ask", grids, h)
         outs = {}
-        with record_function("pusch.rx"):
-            for key, idx in groups.items():
-                outs[key] = sch_receive_batch(
-                    [rx] * len(idx), [grants[i] for i in idx], [bufs[i] for i in idx])
-                self.rx_calls += 1
-        with record_function("pusch.readback"):
-            return self._finish("UL", grants, tbs, outs, groups)
+        for key, idx in groups.items():
+            outs[key] = sch_receive_batch(
+                [rx] * len(idx), [grants[i] for i in idx], [bufs[i] for i in idx])
+            self.rx_calls += 1
+        return self._finish("UL", grants, tbs, outs, groups)
 
 
 def example_link_loop(n_prb=273, n_ues=4, n_tx=16, n_ue_ants=2, seed=0, device=None):

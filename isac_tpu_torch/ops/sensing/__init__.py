@@ -7,7 +7,6 @@ per-antenna CA-CFAR -> union -> range/velocity estimates -> MUSIC DoA.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from isac_tpu_torch.ops.sensing.cfar import (
     CFARConfig,
@@ -31,6 +30,7 @@ from isac_tpu_torch.ops.sensing.radar_params import (
     steering_vector,
 )
 from isac_tpu_torch.ops.sensing.rdm import range_doppler_map, rdm_power
+from isac_tpu_torch.utils import tracing
 
 __all__ = [
     "CFARConfig", "cfar_detect_map", "cfar_extract_detections", "detections_to_estimates",
@@ -45,7 +45,7 @@ def _doa(rx_grid, params, doa_method, max_targets, num_detections=None):
     """Spatial covariance -> the chosen DoA estimator's dict."""
     if doa_method not in ("music", "beamscan", "mvdr"):
         raise ValueError(f"unknown doa method '{doa_method}'")
-    with record_function("sensing.doa"):
+    with tracing.span("sensing.doa"):
         ra = spatial_covariance(rx_grid)
         if doa_method == "music":
             return music_doa(ra, params, max_targets=max_targets,
@@ -77,9 +77,9 @@ def fft_2d_estimate(
     if cfg is None:
         cfg = make_cfar_config(params)
     if rdm is None:
-        with record_function("sensing.rdm"):
+        with tracing.span("sensing.rdm"):
             rdm = range_doppler_map(rx_grid, tx_grid, params.n_ifft, params.n_fft)
-    with record_function("sensing.cfar"):
+    with tracing.span("sensing.cfar"):
         power = torch.abs(rdm) ** 2  # [n_ants, R, C]
         det_maps = cfar_detect_map(power, cfg)  # batched over antennas
         det_union = torch.any(det_maps, dim=0)
@@ -109,7 +109,7 @@ def music_2d_estimate(
     range/velocity spectra from its subcarrier/symbol correlation matrices;
     DoA from the spatial covariance exactly as in fft_2d_estimate, with the
     signal count from the eigenvalue gaps."""
-    with record_function("sensing.music_2d"):
+    with tracing.span("sensing.music_2d"):
         ch = rx_grid[0] * torch.conj(tx_grid[0])  # [n_sym, n_sc], first antenna
         est = music_2d(ch, params, max_targets=max_targets)
     doa = _doa(rx_grid, params, doa_method, max_targets)

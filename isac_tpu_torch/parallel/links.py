@@ -10,7 +10,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from isac_tpu_torch.ops.cdl import CDLLink
 from isac_tpu_torch.parallel.mesh import axis_info, gather, psum, shard
@@ -23,6 +22,7 @@ from isac_tpu_torch.phy.chains import (
     _scrambling_seq,
     grant_tbs,
 )
+from isac_tpu_torch.utils import tracing
 from isac_tpu_torch.utils.device import resolve_device
 
 
@@ -113,7 +113,7 @@ def make_link_step(grant: SCHGrant, n_ldpc_iter: int = 6, device=None,
 
     def step(tb, w, h, noise):
         grid = tx(tb, seq, refs, prbs, grant.rv, w)  # [L, P, 14, K]
-        with record_function("pdsch.channel"):
+        with tracing.span("pdsch.channel"):
             rxg = torch.einsum("ltsk,lskat->lask", grid, h) + noise
         out = rx(rxg, seq, refs, prbs, grant.rv)
         return {"crc_ok": out["crc_ok"], "sinr_db": out["sinr_db"], "tb": out["tb"]}

@@ -18,10 +18,9 @@ dynamic_update_slice / one-hot product puts them.
 Scrambling sequences, DM-RS references and layout indices are uploaded once
 per (key, device) and reused.
 
-Each stage runs inside a ``record_function("<pdsch|pusch>.<tx|rx>.<stage>")``
-range (pdsch for direction "DL", pusch for "UL"), so a torch.profiler trace
-splits its time by stage (isac_tpu_torch/profile_link_step.py and
-profile_link_loop.py read them).
+Each stage runs inside a span ``<pdsch|pusch>.<tx|rx>.<stage>``
+(utils/tracing.py; pdsch for direction "DL", pusch for "UL"), so a traced
+run splits its time by stage.
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ from functools import lru_cache
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from isac_tpu_torch.mac.tables import mcs_info
 from isac_tpu_torch.ops import transport
@@ -45,6 +43,7 @@ from isac_tpu_torch.ops.modulation import (
     pdsch_scrambling_cinit,
     pusch_scrambling_cinit,
 )
+from isac_tpu_torch.utils import tracing
 from isac_tpu_torch.utils.device import resolve_device
 from isac_tpu_torch.utils.sequences import gold_sequence
 
@@ -308,7 +307,7 @@ def _sc_full_dev(prbs_bytes: bytes, shape: tuple, device: torch.device) -> torch
 
 
 def _stage(direction: str, name: str):
-    return record_function(("pdsch." if direction == "DL" else "pusch.") + name)
+    return tracing.span(("pdsch." if direction == "DL" else "pusch.") + name)
 
 
 def _make_tx_fn(key: tuple, w_kind: str = "prg"):

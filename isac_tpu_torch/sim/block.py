@@ -21,7 +21,7 @@ loop's bit for bit, and the results land in the same `_deferred` /
 `_sen_slots` structures in the same order (the reference's `_wire`). Nothing
 inside a segment reads a device result back to the host: the one readback
 stays at the next boundary's `_materialize_due`. Each segment's dispatch
-runs inside a ``record_function("cell.segment")`` range.
+runs inside a ``cell.segment`` span (utils/tracing.py).
 
 Not ported, being the relay's or XLA's: `_planes` (the re/im split of
 complex host inputs), `prepack_due` (the relay's packed fetch issued
@@ -37,7 +37,7 @@ schedulerEntity.m:2148-2171.
 
 from __future__ import annotations
 
-from torch.profiler import record_function
+from isac_tpu_torch.utils import tracing
 
 
 def dispatch_segment(sim, plans: list):
@@ -46,7 +46,7 @@ def dispatch_segment(sim, plans: list):
     if not plans:
         return
     sim.segment_lens.append(len(plans))
-    with record_function("cell.segment"):
+    with tracing.span("cell.segment"):
         for p in plans:
             s = p["slot"]
             if p["dl"] is not None:
@@ -56,5 +56,5 @@ def dispatch_segment(sim, plans: list):
             if p["ul"] is not None:
                 sim._ul_rx_phase(s, sim._apply_ul_tx(p["ul"]))
             if p["srs"] is not None:
-                with record_function("cell.srs"):
+                with tracing.span("cell.srs"):
                     sim._apply_srs(s, p["srs"])

@@ -34,10 +34,13 @@ budget), as in the reference. What differs in form:
 - `mesh=` computes the sensing RDM sharded over the mesh's `mesh_time_axis`
   (parallel/time_blocks.py).
 
-Every stage of a slot runs inside a ``record_function("cell.<stage>")``
-range (tick, plan, dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback,
-sensing; segment around a block-mode segment's device work), which
-`isac_tpu_torch/profile_cell.py` reads.
+Spans (utils/tracing.py): ``build.engine`` around the constructor (with
+``build.engine.links``, the CDL draws, and ``build.engine.rays``, the stacked
+ray constants and their upload), ``cell.slot`` around each slot of the slot
+loop, and inside it a span ``cell.<stage>`` for every stage (tick, plan,
+dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback; segment around a
+block-mode segment's device work); ``cell.finalize`` (flush and KPIs) and
+``cell.sensing`` (the post-pass, its noise draw in ``sensing.noise``).
 """
 
 from __future__ import annotations
@@ -48,7 +51,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from isac_tpu_torch.app.traffic import make_traffic
 from isac_tpu_torch.config.carrier import CarrierConfig
@@ -94,7 +96,7 @@ from isac_tpu_torch.rlc.am import AMEntity
 from isac_tpu_torch.rlc.um import UMEntity
 from isac_tpu_torch.sim.block import dispatch_segment
 from isac_tpu_torch.sim.sensing import make_sensing_chain
-from isac_tpu_torch.utils import prng
+from isac_tpu_torch.utils import prng, tracing
 from isac_tpu_torch.utils.device import resolve_device
 from isac_tpu_torch.utils.geometry import BOLTZMANN, db2pow
 
@@ -180,204 +182,208 @@ class CellSimulator:
         block_slots: int = 0,
         device=None,
     ):
-        if phy_mode not in ("full", "passthrough"):
-            raise ValueError(f"phy_mode must be 'full'|'passthrough', got {phy_mode!r}")
-        self.dev = resolve_device(device)
-        self.mesh = mesh
-        self.mesh_time_axis = mesh_time_axis
-        self.block_slots = int(block_slots)
-        self.segment_lens: list = []
-        self.cell = cell
-        gnb = cell.gnb
-        self.carrier = CarrierConfig(
-            fc_hz=gnb.dl_carrier_freq,
-            bandwidth_hz=gnb.dl_bandwidth,
-            scs_khz=gnb.scs_khz,
-            n_cell_id=gnb.cell_id,
-            n_rb_override=n_rb_override,
-            nfft_override=nfft_override,
-        )
-        self.info = self.carrier.ofdm
-        self.tdd = gnb.tdd
-        # FDD (schedulerEntity.m selectULSlotsToBeScheduledFDD:1482-1617):
-        # paired spectrum, both directions active every slot
-        self.fdd = gnb.duplex_mode == "FDD"
-        self.symbol_sched = gnb.scheduling_type == "symbol"
-        self.tti = cell.scheduling.tti_granularity
-        if self.symbol_sched and self.tti not in (2, 4, 7):
-            raise ValueError(f"tti_granularity must be 2/4/7, got {self.tti}")
-        self.n_rb = self.carrier.n_rb
-        self.n_sc = self.carrier.n_sc
-        self._slots_per_ms = self.carrier.slots_per_frame // 10
-        self.n_ues = cell.ue_positions.shape[0]
-        self.num_slots = cell.num_slots
-        self.n_ldpc_iter = n_ldpc_iter
-        # pass-through PHY (gNBPassThroughPhy.m): statistical CRC, no
-        # waveform, so no grid feeds the radar and sensing is off
-        self.passthrough = phy_mode == "passthrough"
-        self.enable_sensing = (
-            enable_sensing and cell.target_positions.shape[0] > 0 and not self.passthrough
-        )
-        self.doa_method = doa_method
-        self._seed = seed
-        self.rng = np.random.default_rng(seed)
-
-        self.n_tx = gnb.num_tx_ants
-        self.n_ue_ants = cell.ue.num_ants
-        lam = self.carrier.wavelength
-        self.gnb_elems = gnb.antenna.element_positions(lam)
-        # UE antenna: small ULA at 0.5 lambda (ueParameters.m geometry)
-        ue_ant_y = np.arange(self.n_ue_ants) * 0.5 * lam
-        self.ue_elems = np.stack(
-            [np.zeros(self.n_ue_ants), ue_ant_y, np.zeros(self.n_ue_ants)], -1
-        )
-
-        # ---------------- link budget (noise-normalized units) ----------------
-        # per-RE noise power N = k * Teq * SCS; per-RE signal power at the
-        # receiver P_re * 10^((G_rx - PL)/10); grids carry amplitude
-        # sqrt(SNR_re) so receiver-side noise has unit variance
-        scs_hz = gnb.scs_khz * 1e3
-        pl = pathloss_db(
-            cell.pathloss.model,
-            np.asarray(gnb.position),
-            cell.ue_positions,
-            gnb.dl_carrier_freq,
-            cell.ue_los,
-        )  # [n_ues]
-        if cell.pathloss.shadow_fading:
-            sf_rng = np.random.default_rng(cell.pathloss.seed * 997 + gnb.cell_id)
-            pl = pl + sf_rng.normal(0.0, cell.pathloss.shadow_sigma_db, pl.shape)
-        self.pathloss_db = pl
-
-        def teq(nf_db, t_k):
-            return t_k + 290.0 * (db2pow(nf_db) - 1.0)
-
-        n_re_dl = BOLTZMANN * teq(cell.ue.noise_figure_db, cell.ue.temperature_k) * scs_hz
-        n_re_ul = BOLTZMANN * teq(gnb.noise_figure_db, gnb.temperature_k) * scs_hz
-        p_dl_re = db2pow(gnb.tx_power_dbm - 30.0) / self.n_sc  # W per RE
-        self.p_ul_w = db2pow(cell.ue.tx_power_dbm - 30.0)
-        g_dl = db2pow(cell.ue.rx_gain_db - pl)  # [n_ues]
-        g_ul = db2pow(gnb.rx_gain_db - pl)
-        self.amp_dl = np.sqrt(p_dl_re * g_dl / n_re_dl).astype(np.float32)  # [n_ues]
-        self._amp_dl_dev = torch.as_tensor(self.amp_dl, device=self.dev)
-        # UL amplitude depends on the granted bandwidth: P_ue / (12 * n_prb)
-        self._g_ul_over_n = g_ul / n_re_ul
-        self.n_re_ul = n_re_ul
-
-        # ---------------- CDL fading links (host-precomputed constants) -------
-        profiles = [
-            cell.cdl.delay_profile if cell.ue_los[u] else "CDL-A" for u in range(self.n_ues)
-        ]  # updateCDLModels.m: LoS -> CDL-D(config), NLoS -> CDL-A
-        ue_speed = cell.cdl.max_doppler_shift_hz * lam  # fd = v / lambda
-        self.links_dl = [
-            build_cdl_link(
-                profiles[u], cell.cdl.delay_spread_ns, gnb.dl_carrier_freq,
-                self.gnb_elems, self.ue_elems, ue_velocity=ue_speed,
-                seed=cell.cdl.seed * 1000 + u,
+        with tracing.span("build.engine", cell=cell.name):
+            if phy_mode not in ("full", "passthrough"):
+                raise ValueError(f"phy_mode must be 'full'|'passthrough', got {phy_mode!r}")
+            self.dev = resolve_device(device)
+            self.mesh = mesh
+            self.mesh_time_axis = mesh_time_axis
+            self.block_slots = int(block_slots)
+            self.segment_lens: list = []
+            self.cell = cell
+            gnb = cell.gnb
+            self.carrier = CarrierConfig(
+                fc_hz=gnb.dl_carrier_freq,
+                bandwidth_hz=gnb.dl_bandwidth,
+                scs_khz=gnb.scs_khz,
+                n_cell_id=gnb.cell_id,
+                n_rb_override=n_rb_override,
+                nfft_override=nfft_override,
             )
-            for u in range(self.n_ues)
-        ]
-        self.links_ul = [
-            build_cdl_link(
-                profiles[u], cell.cdl.delay_spread_ns, gnb.ul_carrier_freq,
-                self.ue_elems, self.gnb_elems, ue_velocity=ue_speed,
-                seed=cell.cdl.seed * 1000 + 500 + u,
+            self.info = self.carrier.ofdm
+            self.tdd = gnb.tdd
+            # FDD (schedulerEntity.m selectULSlotsToBeScheduledFDD:1482-1617):
+            # paired spectrum, both directions active every slot
+            self.fdd = gnb.duplex_mode == "FDD"
+            self.symbol_sched = gnb.scheduling_type == "symbol"
+            self.tti = cell.scheduling.tti_granularity
+            if self.symbol_sched and self.tti not in (2, 4, 7):
+                raise ValueError(f"tti_granularity must be 2/4/7, got {self.tti}")
+            self.n_rb = self.carrier.n_rb
+            self.n_sc = self.carrier.n_sc
+            self._slots_per_ms = self.carrier.slots_per_frame // 10
+            self.n_ues = cell.ue_positions.shape[0]
+            self.num_slots = cell.num_slots
+            self.n_ldpc_iter = n_ldpc_iter
+            # pass-through PHY (gNBPassThroughPhy.m): statistical CRC, no
+            # waveform, so no grid feeds the radar and sensing is off
+            self.passthrough = phy_mode == "passthrough"
+            self.enable_sensing = (
+                enable_sensing and cell.target_positions.shape[0] > 0 and not self.passthrough
             )
-            for u in range(self.n_ues)
-        ]
-        self.freqs = subcarrier_freqs(self.n_sc, scs_hz)
-        self._sym_t = (
-            self.info.symbol_starts(1, 0).astype(np.float64) / self.info.sample_rate
-        )  # intra-slot symbol times [14]
-        # stacked ray constants, uploaded once: one contraction per slot and
-        # direction gives every UE's H
-        self._h_cache: dict = {}
-        self._bl = {}
-        for d, links in (("DL", self.links_dl), ("UL", self.links_ul)):
-            bl = stack_links(links, device=self.dev)
-            L, n_rx, n_tx2, R = bl.coeff.shape
-            self._bl[d] = {
-                "ff": torch.as_tensor(freq_phases(bl.tau, self.freqs), device=self.dev),  # [L, K, R]
-                "c2": bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx2),
-                "nu": bl.nu,
-                "shape": (n_rx, n_tx2),
-            }
+            self.doa_method = doa_method
+            self._seed = seed
+            self.rng = np.random.default_rng(seed)
 
-        # ---------------- protocol state --------------------------------------
-        sch = cell.scheduling
-        self.scheduler = Scheduler(
-            self.n_ues,
-            self.n_rb,
-            strategy=sch.strategy,
-            mcs_table=sch.mcs_table,
-            rbg_config=sch.rbg_size_config,
-            n_harq=gnb.num_harq,
-            pf_weight=sch.pf_moving_avg_weight,
-            max_rb_per_ue=sch.rb_allocation_limit_dl,
-            slot_duration_s=self.carrier.slot_duration_s,
-            max_rank=min(4, self.n_ue_ants, self.n_tx),
-        )
-        mk_rlc = (lambda: AMEntity()) if rlc_mode == "AM" else (lambda: UMEntity())
-        # two-ended bearer per UE: the gNB-end entity transmits DL SDUs and
-        # receives UL PDUs + DL STATUS; the UE-end entity the reverse
-        self.rlc_gnb = [mk_rlc() for _ in range(self.n_ues)]
-        self.rlc_ue = [mk_rlc() for _ in range(self.n_ues)]
-        self.lcp_dl = [self._mk_lcp() for _ in range(self.n_ues)]
-        self.lcp_ul = [self._mk_lcp() for _ in range(self.n_ues)]
-        tp = cell.traffic
-        self.traffic_dl = [
-            make_traffic(tp.model, True, tp, tp.seed * 100 + u) for u in range(self.n_ues)
-        ]
-        self.traffic_ul = [
-            make_traffic(tp.model, False, tp, tp.seed * 100 + 50 + u)
-            for u in range(self.n_ues)
-        ]
-        self.pending: list[_PendingFeedback] = []
-        self.rx_soft_bufs: dict = {}  # ('DL'|'UL', ue, harq_id) -> decoder buffers
-        self.sb_size = subband_size(self.n_rb)
-        self._sb_of_re = (np.arange(self.n_rb) // self.sb_size).astype(np.int64)
-        # rank cap = min(4, UE rx ants, gNB ports) (uePhy.m:899-906)
-        self._max_rank = min(4, self.n_ue_ants, self.n_tx)
-        # multi-panel UPAs report against the Type-1 multi-panel codebook
-        # (dlPMISelect.m:345, TS 38.214 §5.2.2.2.2); others single-panel
-        self.ng, self.n1, self.n2 = panel_config_for_antenna(gnb.antenna)
-        self.fast_csi = fast_csi
-        # PDSCH rate-matches around the transmitted CSI-RS REs on CSI-RS
-        # slots: the row-5 resource for <= 4 ports, the FDM layout above
-        self.csirs_row5 = self.n_tx <= 4
-        if self.csirs_row5:
-            self.csirs_reserved = ((5, 0), (5, 1), (6, 0), (6, 1))
-        else:
-            self.csirs_reserved = csirs_fdm_reserved(self.n_tx)
-        self.csi_period = max(
-            int(round(sch.csi_report_period_ms * 1e-3 / self.carrier.slot_duration_s)), 1
-        )
-        self.bsr_period = sch.bsr_periodicity_slots
-        self.srs_due = [3 + u // 4 for u in range(self.n_ues)]  # setupSRS.m offsets
-        # sampled RE positions of the fast_csi truth measurements
-        self._csi_sc_dev = torch.as_tensor(np.arange(self.n_rb) * 12 + 6, device=self.dev)
-        self._srs_sc_dev = torch.as_tensor(np.arange(0, self.n_sc, 12), device=self.dev)
+            self.n_tx = gnb.num_tx_ants
+            self.n_ue_ants = cell.ue.num_ants
+            lam = self.carrier.wavelength
+            self.gnb_elems = gnb.antenna.element_positions(lam)
+            # UE antenna: small ULA at 0.5 lambda (ueParameters.m geometry)
+            ue_ant_y = np.arange(self.n_ue_ants) * 0.5 * lam
+            self.ue_elems = np.stack(
+                [np.zeros(self.n_ue_ants), ue_ant_y, np.zeros(self.n_ue_ants)], -1
+            )
 
-        # ---------------- sensing accumulation --------------------------------
-        if self.enable_sensing:
-            # senTxGrid accumulation (gNBPhy.m:604-612), kept on the device per
-            # DL slot until the post-pass; zeros on UL slots
-            self._sen_slots: dict = {}  # slot -> [n_tx, n_sym, n_sc]
-            self._sen_amp_law = np.float32(10 ** ((gnb.tx_power_dbm - 30) / 20.0))
-        self._deferred: list = []  # device-side results awaiting their due slot
-        self.rx_calls = 0  # sch_receive_batch calls made (one decoder launch each)
-        self.metrics = CellMetrics(
-            n_ues=self.n_ues,
-            bandwidth_hz=gnb.dl_bandwidth,
-            duration_s=self.num_slots * self.carrier.slot_duration_s,
-        )
-        self.sched_log = SchedulingLogger(self.num_slots, self.n_ues, self.n_rb)
-        self.pcap = (
-            MacPcapWriter(pcap_path, tdd=gnb.duplex_mode == "TDD") if pcap_path else None
-        )
-        self._cqi_walk = (
-            CQIWalk(self.n_ues, self.n_rb, seed=seed + 17) if self.passthrough else None
-        )
+            # ---------------- link budget (noise-normalized units) ----------------
+            # per-RE noise power N = k * Teq * SCS; per-RE signal power at the
+            # receiver P_re * 10^((G_rx - PL)/10); grids carry amplitude
+            # sqrt(SNR_re) so receiver-side noise has unit variance
+            scs_hz = gnb.scs_khz * 1e3
+            pl = pathloss_db(
+                cell.pathloss.model,
+                np.asarray(gnb.position),
+                cell.ue_positions,
+                gnb.dl_carrier_freq,
+                cell.ue_los,
+            )  # [n_ues]
+            if cell.pathloss.shadow_fading:
+                sf_rng = np.random.default_rng(cell.pathloss.seed * 997 + gnb.cell_id)
+                pl = pl + sf_rng.normal(0.0, cell.pathloss.shadow_sigma_db, pl.shape)
+            self.pathloss_db = pl
+
+            def teq(nf_db, t_k):
+                return t_k + 290.0 * (db2pow(nf_db) - 1.0)
+
+            n_re_dl = BOLTZMANN * teq(cell.ue.noise_figure_db, cell.ue.temperature_k) * scs_hz
+            n_re_ul = BOLTZMANN * teq(gnb.noise_figure_db, gnb.temperature_k) * scs_hz
+            p_dl_re = db2pow(gnb.tx_power_dbm - 30.0) / self.n_sc  # W per RE
+            self.p_ul_w = db2pow(cell.ue.tx_power_dbm - 30.0)
+            g_dl = db2pow(cell.ue.rx_gain_db - pl)  # [n_ues]
+            g_ul = db2pow(gnb.rx_gain_db - pl)
+            self.amp_dl = np.sqrt(p_dl_re * g_dl / n_re_dl).astype(np.float32)  # [n_ues]
+            self._amp_dl_dev = torch.as_tensor(self.amp_dl, device=self.dev)
+            # UL amplitude depends on the granted bandwidth: P_ue / (12 * n_prb)
+            self._g_ul_over_n = g_ul / n_re_ul
+            self.n_re_ul = n_re_ul
+
+            # ---------------- CDL fading links (host-precomputed constants) -------
+            profiles = [
+                cell.cdl.delay_profile if cell.ue_los[u] else "CDL-A" for u in range(self.n_ues)
+            ]  # updateCDLModels.m: LoS -> CDL-D(config), NLoS -> CDL-A
+            ue_speed = cell.cdl.max_doppler_shift_hz * lam  # fd = v / lambda
+            with tracing.span("build.engine.links"):
+                self.links_dl = [
+                    build_cdl_link(
+                        profiles[u], cell.cdl.delay_spread_ns, gnb.dl_carrier_freq,
+                        self.gnb_elems, self.ue_elems, ue_velocity=ue_speed,
+                        seed=cell.cdl.seed * 1000 + u,
+                    )
+                    for u in range(self.n_ues)
+                ]
+                self.links_ul = [
+                    build_cdl_link(
+                        profiles[u], cell.cdl.delay_spread_ns, gnb.ul_carrier_freq,
+                        self.ue_elems, self.gnb_elems, ue_velocity=ue_speed,
+                        seed=cell.cdl.seed * 1000 + 500 + u,
+                    )
+                    for u in range(self.n_ues)
+                ]
+            self.freqs = subcarrier_freqs(self.n_sc, scs_hz)
+            self._sym_t = (
+                self.info.symbol_starts(1, 0).astype(np.float64) / self.info.sample_rate
+            )  # intra-slot symbol times [14]
+            # stacked ray constants, uploaded once: one contraction per slot and
+            # direction gives every UE's H
+            self._h_cache: dict = {}
+            self._bl = {}
+            with tracing.span("build.engine.rays"):
+                for d, links in (("DL", self.links_dl), ("UL", self.links_ul)):
+                    bl = stack_links(links, device=self.dev)
+                    L, n_rx, n_tx2, R = bl.coeff.shape
+                    self._bl[d] = {
+                        "ff": torch.as_tensor(freq_phases(bl.tau, self.freqs),
+                                              device=self.dev),  # [L, K, R]
+                        "c2": bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx2),
+                        "nu": bl.nu,
+                        "shape": (n_rx, n_tx2),
+                    }
+
+            # ---------------- protocol state --------------------------------------
+            sch = cell.scheduling
+            self.scheduler = Scheduler(
+                self.n_ues,
+                self.n_rb,
+                strategy=sch.strategy,
+                mcs_table=sch.mcs_table,
+                rbg_config=sch.rbg_size_config,
+                n_harq=gnb.num_harq,
+                pf_weight=sch.pf_moving_avg_weight,
+                max_rb_per_ue=sch.rb_allocation_limit_dl,
+                slot_duration_s=self.carrier.slot_duration_s,
+                max_rank=min(4, self.n_ue_ants, self.n_tx),
+            )
+            mk_rlc = (lambda: AMEntity()) if rlc_mode == "AM" else (lambda: UMEntity())
+            # two-ended bearer per UE: the gNB-end entity transmits DL SDUs and
+            # receives UL PDUs + DL STATUS; the UE-end entity the reverse
+            self.rlc_gnb = [mk_rlc() for _ in range(self.n_ues)]
+            self.rlc_ue = [mk_rlc() for _ in range(self.n_ues)]
+            self.lcp_dl = [self._mk_lcp() for _ in range(self.n_ues)]
+            self.lcp_ul = [self._mk_lcp() for _ in range(self.n_ues)]
+            tp = cell.traffic
+            self.traffic_dl = [
+                make_traffic(tp.model, True, tp, tp.seed * 100 + u) for u in range(self.n_ues)
+            ]
+            self.traffic_ul = [
+                make_traffic(tp.model, False, tp, tp.seed * 100 + 50 + u)
+                for u in range(self.n_ues)
+            ]
+            self.pending: list[_PendingFeedback] = []
+            self.rx_soft_bufs: dict = {}  # ('DL'|'UL', ue, harq_id) -> decoder buffers
+            self.sb_size = subband_size(self.n_rb)
+            self._sb_of_re = (np.arange(self.n_rb) // self.sb_size).astype(np.int64)
+            # rank cap = min(4, UE rx ants, gNB ports) (uePhy.m:899-906)
+            self._max_rank = min(4, self.n_ue_ants, self.n_tx)
+            # multi-panel UPAs report against the Type-1 multi-panel codebook
+            # (dlPMISelect.m:345, TS 38.214 §5.2.2.2.2); others single-panel
+            self.ng, self.n1, self.n2 = panel_config_for_antenna(gnb.antenna)
+            self.fast_csi = fast_csi
+            # PDSCH rate-matches around the transmitted CSI-RS REs on CSI-RS
+            # slots: the row-5 resource for <= 4 ports, the FDM layout above
+            self.csirs_row5 = self.n_tx <= 4
+            if self.csirs_row5:
+                self.csirs_reserved = ((5, 0), (5, 1), (6, 0), (6, 1))
+            else:
+                self.csirs_reserved = csirs_fdm_reserved(self.n_tx)
+            self.csi_period = max(
+                int(round(sch.csi_report_period_ms * 1e-3 / self.carrier.slot_duration_s)), 1
+            )
+            self.bsr_period = sch.bsr_periodicity_slots
+            self.srs_due = [3 + u // 4 for u in range(self.n_ues)]  # setupSRS.m offsets
+            # sampled RE positions of the fast_csi truth measurements
+            self._csi_sc_dev = torch.as_tensor(np.arange(self.n_rb) * 12 + 6, device=self.dev)
+            self._srs_sc_dev = torch.as_tensor(np.arange(0, self.n_sc, 12), device=self.dev)
+
+            # ---------------- sensing accumulation --------------------------------
+            if self.enable_sensing:
+                # senTxGrid accumulation (gNBPhy.m:604-612), kept on the device per
+                # DL slot until the post-pass; zeros on UL slots
+                self._sen_slots: dict = {}  # slot -> [n_tx, n_sym, n_sc]
+                self._sen_amp_law = np.float32(10 ** ((gnb.tx_power_dbm - 30) / 20.0))
+            self._deferred: list = []  # device-side results awaiting their due slot
+            self.rx_calls = 0  # sch_receive_batch calls made (one decoder launch each)
+            self.metrics = CellMetrics(
+                n_ues=self.n_ues,
+                bandwidth_hz=gnb.dl_bandwidth,
+                duration_s=self.num_slots * self.carrier.slot_duration_s,
+            )
+            self.sched_log = SchedulingLogger(self.num_slots, self.n_ues, self.n_rb)
+            self.pcap = (
+                MacPcapWriter(pcap_path, tdd=gnb.duplex_mode == "TDD") if pcap_path else None
+            )
+            self._cqi_walk = (
+                CQIWalk(self.n_ues, self.n_rb, seed=seed + 17) if self.passthrough else None
+            )
 
     # ------------------------------------------------------------------ setup
 
@@ -527,7 +533,7 @@ class CellSimulator:
     def _materialize_due(self, slot: int):
         """Bring every result whose protocol due slot has arrived to the host
         in one copy, and hand it to the control plane."""
-        with record_function("cell.due_readback"):
+        with tracing.span("cell.due_readback"):
             due, leaves = self._collect_due(slot)
             if not due:
                 return
@@ -851,7 +857,7 @@ class CellSimulator:
         """Host half of the DL tx phase: scheduling, TB building, the CSI-RS
         grid. Returns a plan dict for _apply_dl_tx, or None for passthrough
         (handled inline)."""
-        with record_function("cell.plan"):
+        with tracing.span("cell.plan"):
             if self.passthrough:
                 self._passthrough_slot(slot, "DL", n_sym)
                 if csi_slot:
@@ -916,7 +922,7 @@ class CellSimulator:
         slot, n_sym, csi_slot = plan["slot"], plan["n_sym"], plan["csi_slot"]
         groups = plan["groups"]
         port_grid = None
-        with record_function("cell.dl_tx"):
+        with tracing.span("cell.dl_tx"):
             for items in groups.values():
                 grid_u = sch_transmit_batch(
                     [tb for _, _, tb, _ in items],
@@ -933,7 +939,7 @@ class CellSimulator:
                 port_grid = csirs if port_grid is None else port_grid + csirs
         if port_grid is None:
             if csi_slot and self.fast_csi:  # truth-based CSI needs no grid
-                with record_function("cell.csi"):
+                with tracing.span("cell.csi"):
                     for u in range(self.n_ues):
                         self._csirs_measure(u, slot)
             return None
@@ -947,7 +953,7 @@ class CellSimulator:
         `ext` [n_ues, n_rx, 14, n_sc], e.g. other cells' co-channel DL, added
         before the noise) and decode this cell's grants."""
         groups, port_grid = st["groups"], st["port_grid"]
-        with record_function("cell.dl_rx"):
+        with tracing.span("cell.dl_rx"):
             # all UEs' received grids at once: [n_ues, n_rx, 14, n_sc]
             rx_all = torch.einsum("tsk,lskat->lask", port_grid, self._h_slot(slot, "DL"))
             rx_all = rx_all * self._amp_dl_dev[:, None, None, None]
@@ -976,7 +982,7 @@ class CellSimulator:
                     })
         if csi_slot:
             # every UE measures CSI this slot, granted or not
-            with record_function("cell.csi"):
+            with tracing.span("cell.csi"):
                 for u in range(self.n_ues):
                     if self.fast_csi:
                         self._csirs_measure(u, slot)
@@ -1000,7 +1006,7 @@ class CellSimulator:
     def _plan_ul(self, slot: int, n_sym: int):
         """Host half of the UL tx phase: scheduling + TB building. Returns
         {slot, groups} or None (nothing granted / passthrough inline)."""
-        with record_function("cell.plan"):
+        with tracing.span("cell.plan"):
             if self.passthrough:
                 self._passthrough_slot(slot, "UL", n_sym)
                 return None
@@ -1029,7 +1035,7 @@ class CellSimulator:
         within a layout group)."""
         groups = plan["groups"]
         all_items, all_grids = [], []
-        with record_function("cell.ul_tx"):
+        with tracing.span("cell.ul_tx"):
             for items in groups.values():
                 all_items.extend(items)
                 all_grids.extend(sch_transmit_batch(
@@ -1045,7 +1051,7 @@ class CellSimulator:
         ext [n_rx, 14, n_sc], seen by every grant's receiver, added before the
         noise) and decode."""
         groups, all_items, all_grids = st["groups"], st["all_items"], st["all_grids"]
-        with record_function("cell.ul_rx"):
+        with tracing.span("cell.ul_rx"):
             h_all = self._h_slot(slot, "UL")
             ue_idx = self._to_dev(np.asarray([g.ue for g, _, _, _ in all_items], np.int64))
             # UE power concentrates on the granted PRBs (P_ue / n_alloc_re)
@@ -1095,7 +1101,7 @@ class CellSimulator:
         algo = cell.gnb.radar.est_algorithm.upper()
         if algo not in ("FFT", "MUSIC"):
             raise ValueError(f"est_algorithm must be FFT|MUSIC, got {algo!r}")
-        with record_function("cell.sensing"):
+        with tracing.span("cell.sensing"):
             starts = tuple(sorted(self._sen_slots))
             widths = tuple(int(self._sen_slots[st].shape[1]) for st in starts)
             chain, params = make_sensing_chain(
@@ -1110,10 +1116,11 @@ class CellSimulator:
             n = int(self.info.symbol_lengths_slots(self.num_slots).sum())
             kr, ki = prng.split(self._slot_key(10**6, 0))
             sigma = float(np.float32(np.sqrt(params.n0 / 2.0)))
-            noise = torch.complex(
-                prng.normal(kr, (n, self.n_tx), self.dev).mul_(sigma),
-                prng.normal(ki, (n, self.n_tx), self.dev).mul_(sigma),
-            )
+            with tracing.span("sensing.noise", device=True):
+                noise = torch.complex(
+                    prng.normal(kr, (n, self.n_tx), self.dev).mul_(sigma),
+                    prng.normal(ki, (n, self.n_tx), self.dev).mul_(sigma),
+                )
             est = chain([self._to_dev(self._sen_slots[st]) for st in starts], noise)
             del noise
             small = [k for k in ("rngEst", "velEst", "aziEst", "eleEst") if k in est]
@@ -1132,7 +1139,7 @@ class CellSimulator:
         due results to the host, in its one readback of every cell's
         (sim/network.py SyncNetworkRunner._materialize_all)."""
         if slot % self._slots_per_ms == 0:
-            with record_function("cell.tick"):
+            with tracing.span("cell.tick"):
                 self._tick_1ms()
         if not skip_materialize:
             self._materialize_due(slot)
@@ -1191,7 +1198,7 @@ class CellSimulator:
     def _epilogue_srs(self, slot: int, sounding: list):
         if not sounding:
             return
-        with record_function("cell.srs"):
+        with tracing.span("cell.srs"):
             if self.passthrough:
                 for u in sounding:  # emulated UL CQI walk
                     cqi = self._cqi_walk.report(u)
@@ -1205,29 +1212,31 @@ class CellSimulator:
         run(); a network runner calls it after the lockstep slot loop).
         sensing=False leaves the post-pass out (its result is then None), for
         a caller that times run_sensing() on its own."""
-        self._materialize_due(self.num_slots + 10**6)
-        self._process_due(self.num_slots + 10**6)
-        qm_max = 8 if self.scheduler.mcs_table == "qam256" else 6
-        dl_ratio = 1.0 if self.fdd else self.tdd.dl_ratio()
-        ul_ratio = 1.0 if self.fdd else 1.0 - self.tdd.dl_ratio()
-        comm = self.metrics.finalize(
-            peak_se_dl=peak_spectral_efficiency(
-                min(4, self.n_ue_ants, self.n_tx), qm_max, dl_ratio
-            ),
-            peak_se_ul=peak_spectral_efficiency(
-                min(4, self.n_ue_ants, self.n_tx), qm_max, ul_ratio
-            ),
-        )
-        sensing = self.run_sensing() if (self.enable_sensing and sensing) else None
-        if self.pcap is not None:
-            self.pcap.save()
-        out = {"communication": comm, "sensing": sensing, "cell": self.cell.name}
-        if (
-            self.cell.log.enable_traces
-            or self.cell.log.cqi_visualization
-            or self.cell.log.rb_visualization
-        ):
-            out["logs"] = self.sched_log.finalize()
+        with tracing.span("cell.finalize"):
+            self._materialize_due(self.num_slots + 10**6)
+            self._process_due(self.num_slots + 10**6)
+            qm_max = 8 if self.scheduler.mcs_table == "qam256" else 6
+            dl_ratio = 1.0 if self.fdd else self.tdd.dl_ratio()
+            ul_ratio = 1.0 if self.fdd else 1.0 - self.tdd.dl_ratio()
+            comm = self.metrics.finalize(
+                peak_se_dl=peak_spectral_efficiency(
+                    min(4, self.n_ue_ants, self.n_tx), qm_max, dl_ratio
+                ),
+                peak_se_ul=peak_spectral_efficiency(
+                    min(4, self.n_ue_ants, self.n_tx), qm_max, ul_ratio
+                ),
+            )
+            if self.pcap is not None:
+                self.pcap.save()
+            out = {"communication": comm, "sensing": None, "cell": self.cell.name}
+            if (
+                self.cell.log.enable_traces
+                or self.cell.log.cqi_visualization
+                or self.cell.log.rb_visualization
+            ):
+                out["logs"] = self.sched_log.finalize()
+        if self.enable_sensing and sensing:
+            out["sensing"] = self.run_sensing()
         return out
 
     # ------------------------------------------------------------------- run
@@ -1242,13 +1251,14 @@ class CellSimulator:
             self._run_blocks(start_slot, stop)
         else:
             for slot in range(start_slot, stop):
-                info = self._slot_begin(slot)
-                n_dl = self._dl_syms(info)
-                if n_dl:
-                    st = self._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
-                    if st is not None:
-                        self._dl_rx_phase(slot, info["csi_slot"], st)
-                self._slot_finish(slot, info)
+                with tracing.span("cell.slot", slot=slot):
+                    info = self._slot_begin(slot)
+                    n_dl = self._dl_syms(info)
+                    if n_dl:
+                        st = self._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
+                        if st is not None:
+                            self._dl_rx_phase(slot, info["csi_slot"], st)
+                    self._slot_finish(slot, info)
         if finalize:
             return self.finalize()
         return None

@@ -35,22 +35,24 @@ pathlosses, and the due slots of every cell's results. What differs in form:
   axis and take the per-destination path, as in the reference; `mesh` is
   then None after the banks are built.
 
-Each stage of a network slot runs inside ``record_function("network.<stage>")``
-(banks, readback, dl_tx, dl_cross, dl_rx, ul_tx, ul_cross, ul_rx, epilogue);
-the engine's own ``cell.*`` ranges sit inside them, and ``network.banks``
-(a bank's build and slot response) inside the cross stages that ask for it.
-`isac_tpu_torch/profile_network.py` reads them.
+Spans (utils/tracing.py): ``build.cells`` (validation and the per-cell
+parameters), ``build.los`` (the city and every line-of-sight test) and
+``network.results`` (the ECDF gather) in `network_simulation`; in the
+runner a ``network.slot`` span per slot, and inside it one span
+``network.<stage>`` per stage (readback, dl_tx, dl_cross, dl_rx, ul_tx,
+ul_cross, ul_rx, epilogue). The engine's own ``cell.*`` spans sit inside
+them, and ``network.banks`` (a bank's build and slot response) inside the
+cross stages that ask for it, with ``network.bank_h`` around the slot
+response's device work.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
 from isac_tpu_torch.metrics.kpi import ecdf
@@ -60,6 +62,7 @@ from isac_tpu_torch.parallel.cells import network_cross_rx
 from isac_tpu_torch.parallel.links import stack_links
 from isac_tpu_torch.sim.cell import CellSimulator, _readback
 from isac_tpu_torch.topology.osm import build_city
+from isac_tpu_torch.utils import tracing
 from isac_tpu_torch.utils.geometry import BOLTZMANN, db2pow
 
 def resolve_los(cells: list, sim: SimulationParameters) -> list:
@@ -76,40 +79,41 @@ def resolve_los_cross(cells: list, sim: SimulationParameters):
     antenna-UE pair). Returns (cells, cross_los) with cross_los[(dst_idx,
     src_idx)] = bool[n_ues_dst]; an empty dict without a city (cross links are
     then NLoS CDL-A)."""
-    city = None
-    for name in sim.city:
-        city = build_city(sim.city[name], sim.roi)
-        break
-    if city is None:
-        return cells, {}
-    out = []
-    cross_los: dict = {}
-    for d, cell in enumerate(cells):
-        gpos = np.asarray(cell.gnb.position, np.float64)
-        ue_los = city.check_los(
-            cell.ue_positions, np.broadcast_to(gpos, cell.ue_positions.shape)
-        )
-        if cell.target_positions.shape[0]:
-            tg_los = city.check_los(
-                cell.target_positions,
-                np.broadcast_to(gpos, cell.target_positions.shape),
+    with tracing.span("build.los"):
+        city = None
+        for name in sim.city:
+            city = build_city(sim.city[name], sim.roi)
+            break
+        if city is None:
+            return cells, {}
+        out = []
+        cross_los: dict = {}
+        for d, cell in enumerate(cells):
+            gpos = np.asarray(cell.gnb.position, np.float64)
+            ue_los = city.check_los(
+                cell.ue_positions, np.broadcast_to(gpos, cell.ue_positions.shape)
             )
-        else:
-            tg_los = np.ones(0, bool)
-        out.append(cell.with_(ue_los=np.asarray(ue_los, bool),
-                              target_los=np.asarray(tg_los, bool)))
-        for s, src in enumerate(cells):
-            if s == d:
-                continue
-            spos = np.asarray(src.gnb.position, np.float64)
-            cross_los[(d, s)] = np.asarray(
-                city.check_los(
-                    cell.ue_positions,
-                    np.broadcast_to(spos, cell.ue_positions.shape),
-                ),
-                bool,
-            )
-    return out, cross_los
+            if cell.target_positions.shape[0]:
+                tg_los = city.check_los(
+                    cell.target_positions,
+                    np.broadcast_to(gpos, cell.target_positions.shape),
+                )
+            else:
+                tg_los = np.ones(0, bool)
+            out.append(cell.with_(ue_los=np.asarray(ue_los, bool),
+                                  target_los=np.asarray(tg_los, bool)))
+            for s, src in enumerate(cells):
+                if s == d:
+                    continue
+                spos = np.asarray(src.gnb.position, np.float64)
+                cross_los[(d, s)] = np.asarray(
+                    city.check_los(
+                        cell.ue_positions,
+                        np.broadcast_to(spos, cell.ue_positions.shape),
+                    ),
+                    bool,
+                )
+        return out, cross_los
 
 
 class _RayBank:
@@ -140,8 +144,9 @@ class _RayBank:
             t = slot * self._slot_dur + self._sym_t
             ft = torch.as_tensor(time_phases(self._nu, t), device=self.dev)  # [L, 14, R]
             L, R = ft.shape[0], ft.shape[-1]
-            ph = ft[:, :, None, :] * self._ff[:, None, :, :]  # [L, 14, K, R]
-            h = torch.matmul(ph.reshape(L, -1, R), self._c2)  # [L, 14*K, rx*tx]
+            with tracing.span("network.bank_h", device=True):
+                ph = ft[:, :, None, :] * self._ff[:, None, :, :]  # [L, 14, K, R]
+                h = torch.matmul(ph.reshape(L, -1, R), self._c2)  # [L, 14*K, rx*tx]
             del ph
             self._h_cache[slot] = h.reshape(self.n_cells, self.n_ues, 14, self._n_sc,
                                             n_rx, n_tx)
@@ -264,8 +269,9 @@ class SyncNetworkRunner:
     cell's.
 
     stage_s: host seconds spent in each stage (the names of the
-    ``network.*`` ranges) since construction; ``banks`` (bank builds and
-    slot responses) is also inside ``dl_cross`` / ``ul_cross``."""
+    ``network.*`` spans) since construction, whether or not tracing records;
+    ``banks`` (bank builds and slot responses) is also inside ``dl_cross`` /
+    ``ul_cross``."""
 
     def __init__(self, cells: list, seed: int = 0, cross_los: dict | None = None,
                  mesh=None, ul_interference: bool = True, device=None, **cell_kwargs):
@@ -289,11 +295,10 @@ class SyncNetworkRunner:
 
     @contextlib.contextmanager
     def _stage(self, name: str):
-        """The ``network.<name>`` range, its host time added to stage_s."""
-        t0 = time.perf_counter()
-        with record_function(f"network.{name}"):
+        """The ``network.<name>`` span, its host time added to stage_s."""
+        with tracing.span(f"network.{name}", timed=True) as sp:
             yield
-        self.stage_s[name] = self.stage_s.get(name, 0.0) + time.perf_counter() - t0
+        self.stage_s[name] = self.stage_s.get(name, 0.0) + sp.seconds
 
     def _build_banks(self):
         if self.banks is not None:
@@ -422,49 +427,50 @@ class SyncNetworkRunner:
     def run(self) -> list:
         self._build_banks()
         for slot in range(self.num_slots):
-            with self._stage("readback"):
-                self._materialize_all(slot)
-                infos = [sim._slot_begin(slot, skip_materialize=True) for sim in self.sims]
-            # 1) every co-channel cell's DL transmit grid first
-            states = []
-            with self._stage("dl_tx"):
-                for sim, info in zip(self.sims, infos):
-                    n_dl = sim._dl_syms(info)
-                    states.append(sim._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
-                                  if n_dl else None)
-            # 2) each receiver: serving signal + the other cells' co-channel DL
-            ext_all = None
-            if self.mesh is not None and any(st is not None for st in states):
-                with self._stage("dl_cross"):
-                    ext_all = self._dl_ext_mesh(slot, states)
-            for d, (sim, info) in enumerate(zip(self.sims, infos)):
-                if states[d] is None:
-                    continue
-                if ext_all is not None:
-                    ext = ext_all[d]
-                else:
+            with tracing.span("network.slot", slot=slot):
+                with self._stage("readback"):
+                    self._materialize_all(slot)
+                    infos = [sim._slot_begin(slot, skip_materialize=True) for sim in self.sims]
+                # 1) every co-channel cell's DL transmit grid first
+                states = []
+                with self._stage("dl_tx"):
+                    for sim, info in zip(self.sims, infos):
+                        n_dl = sim._dl_syms(info)
+                        states.append(sim._dl_tx_phase(slot, n_dl, csi_slot=info["csi_slot"])
+                                      if n_dl else None)
+                # 2) each receiver: serving signal + the other cells' co-channel DL
+                ext_all = None
+                if self.mesh is not None and any(st is not None for st in states):
                     with self._stage("dl_cross"):
-                        ext = self._dl_ext(d, slot, states)
-                with self._stage("dl_rx"):
-                    sim._dl_rx_phase(slot, info["csi_slot"], states[d], ext=ext)
-            # 3) UL: every cell's granted uplinks first, then each gNB
-            #    receives serving + other cells' co-channel UL
-            ul_states = []
-            with self._stage("ul_tx"):
-                for sim, info in zip(self.sims, infos):
-                    n_ul = sim._ul_syms(info)
-                    ul_states.append(sim._ul_tx_phase(slot, n_ul) if n_ul else None)
-            for d, sim in enumerate(self.sims):
-                if ul_states[d] is None:
-                    continue
-                with self._stage("ul_cross"):
-                    ext = self._ul_ext(d, slot, ul_states) if self.ul_interference else None
-                with self._stage("ul_rx"):
-                    sim._ul_rx_phase(slot, ul_states[d], ext=ext)
-            # 4) BSR + SRS
-            with self._stage("epilogue"):
-                for sim, info in zip(self.sims, infos):
-                    sim._slot_epilogue(slot, info)
+                        ext_all = self._dl_ext_mesh(slot, states)
+                for d, (sim, info) in enumerate(zip(self.sims, infos)):
+                    if states[d] is None:
+                        continue
+                    if ext_all is not None:
+                        ext = ext_all[d]
+                    else:
+                        with self._stage("dl_cross"):
+                            ext = self._dl_ext(d, slot, states)
+                    with self._stage("dl_rx"):
+                        sim._dl_rx_phase(slot, info["csi_slot"], states[d], ext=ext)
+                # 3) UL: every cell's granted uplinks first, then each gNB
+                #    receives serving + other cells' co-channel UL
+                ul_states = []
+                with self._stage("ul_tx"):
+                    for sim, info in zip(self.sims, infos):
+                        n_ul = sim._ul_syms(info)
+                        ul_states.append(sim._ul_tx_phase(slot, n_ul) if n_ul else None)
+                for d, sim in enumerate(self.sims):
+                    if ul_states[d] is None:
+                        continue
+                    with self._stage("ul_cross"):
+                        ext = self._ul_ext(d, slot, ul_states) if self.ul_interference else None
+                    with self._stage("ul_rx"):
+                        sim._ul_rx_phase(slot, ul_states[d], ext=ext)
+                # 4) BSR + SRS
+                with self._stage("epilogue"):
+                    for sim, info in zip(self.sims, infos):
+                        sim._slot_epilogue(slot, info)
         return [sim.finalize() for sim in self.sims]
 
 
@@ -491,8 +497,9 @@ def network_simulation(
     reference's parfeval, networkSimulation.m:44-61; each cell owns its key
     stream, so the results equal the sequential run's). `mesh` goes to the
     lockstep runner (SyncNetworkRunner)."""
-    sim.validate()
-    cells = assign_cell_parameters(sim)
+    with tracing.span("build.cells"):
+        sim.validate()
+        cells = assign_cell_parameters(sim)
     cells, cross_los = resolve_los_cross(cells, sim)
 
     if interference and len(cells) > 1 and _has_cochannel(cells):
@@ -511,26 +518,27 @@ def network_simulation(
         else:
             results = [run_one(it) for it in items]
 
-    # network-level ECDF inputs (networkSimulation.m plotComMetricsECDF:173-232:
-    # throughput, goodput and BLER surfaces, metricsVisualizer.m:627-674)
-    def gather(key):
-        return np.concatenate([r["communication"][key] for r in results])
+    with tracing.span("network.results"):
+        # network-level ECDF inputs (networkSimulation.m plotComMetricsECDF:173-232:
+        # throughput, goodput and BLER surfaces, metricsVisualizer.m:627-674)
+        def gather(key):
+            return np.concatenate([r["communication"][key] for r in results])
 
-    network = {
-        "totalDLThroughputMbps": float(
-            sum(r["communication"]["cellDLThroughputMbps"] for r in results)
-        ),
-        "totalULThroughputMbps": float(
-            sum(r["communication"]["cellULThroughputMbps"] for r in results)
-        ),
-    }
-    for label, key in (
-        ("dlThroughputECDF", "ueDLThroughputMbps"),
-        ("ulThroughputECDF", "ueULThroughputMbps"),
-        ("dlGoodputECDF", "ueDLAppGoodputMbps"),
-        ("ulGoodputECDF", "ueULAppGoodputMbps"),
-        ("dlBLERECDF", "ueDLBLER"),
-        ("ulBLERECDF", "ueULBLER"),
-    ):
-        network[label] = ecdf(gather(key))
+        network = {
+            "totalDLThroughputMbps": float(
+                sum(r["communication"]["cellDLThroughputMbps"] for r in results)
+            ),
+            "totalULThroughputMbps": float(
+                sum(r["communication"]["cellULThroughputMbps"] for r in results)
+            ),
+        }
+        for label, key in (
+            ("dlThroughputECDF", "ueDLThroughputMbps"),
+            ("ulThroughputECDF", "ueULThroughputMbps"),
+            ("dlGoodputECDF", "ueDLAppGoodputMbps"),
+            ("ulGoodputECDF", "ueULAppGoodputMbps"),
+            ("dlBLERECDF", "ueDLBLER"),
+            ("ulBLERECDF", "ueULBLER"),
+        ):
+            network[label] = ecdf(gather(key))
     return {"cells": results, "network": network}

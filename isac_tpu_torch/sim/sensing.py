@@ -8,16 +8,15 @@ demodulated and handed to the 2D-FFT chain (RDM -> CA-CFAR -> DoA) or to the
 range/velocity MUSIC chain. No engine state: everything the chain needs comes
 in as arguments, and the random draw is the caller's generator.
 
-Each stage runs inside a ``record_function("sensing.<stage>")`` range (assemble,
-ofdm_modulate, echo, ofdm_demodulate here; rdm, cfar, doa, music_2d in
-ops/sensing), which `profile_sensing.py` reads.
+Each stage runs inside a span ``sensing.<stage>`` (utils/tracing.py;
+assemble, ofdm_modulate, echo, ofdm_demodulate here; rdm, cfar, doa, music_2d
+in ops/sensing).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from isac_tpu_torch.ops.ofdm import ofdm_demodulate, ofdm_modulate
 from isac_tpu_torch.ops.sensing import (
@@ -28,6 +27,7 @@ from isac_tpu_torch.ops.sensing import (
     music_2d_estimate,
 )
 from isac_tpu_torch.parallel.time_blocks import range_doppler_map_sharded
+from isac_tpu_torch.utils import tracing
 from isac_tpu_torch.utils.device import resolve_device
 
 
@@ -90,24 +90,24 @@ def make_sensing_chain(
             generator = noise_or_generator
         else:
             noise = noise_or_generator
-        with record_function("sensing.assemble"):
+        with tracing.span("sensing.assemble"):
             tx_grid = torch.zeros((n_tx, num_slots * sps, n_sc), dtype=torch.complex64,
                                   device=dev)
             for st, wdt, g in zip(starts, widths, grids):
                 tx_grid[:, st * sps: st * sps + wdt, :] = g
-        with record_function("sensing.ofdm_modulate"):
+        with tracing.span("sensing.ofdm_modulate"):
             tx_wave = ofdm_modulate(tx_grid, info).T  # [N, n_tx]
-        with record_function("sensing.echo"):
+        with tracing.span("sensing.echo"):
             rx = apply_radar_channel(tx_wave, params, generator, los, noise)
             del tx_wave
-        with record_function("sensing.ofdm_demodulate"):
+        with tracing.span("sensing.ofdm_demodulate"):
             rx_grid = ofdm_demodulate(rx.T, info, n_sc, num_slots)
             del rx
         if algo == "MUSIC":
             return music_2d_estimate(rx_grid, tx_grid, params, doa_method=doa_method)
         rdm = None
         if rdm_fn is not None:
-            with record_function("sensing.rdm"):
+            with tracing.span("sensing.rdm"):
                 rdm = rdm_fn(rx_grid, tx_grid)
         return fft_2d_estimate(rx_grid, tx_grid, params, cfg, doa_method=doa_method, rdm=rdm)
 

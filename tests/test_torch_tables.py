@@ -178,12 +178,11 @@ def test_port_imports_neither_jax_nor_isac_tpu():
     # a sub-package without __init__.py would silently drop out of the walk
     for m in ("parallel.links", "example", "config.params", "config.scenarios", "ops.ofdm",
               "ops.dft", "ops.sensing.doa", "ops.sensing.echo", "sim.sensing", "utils.windows",
-              "profile_sensing", "ops.csi", "ops.csirs", "ops.srs", "ops.pathloss",
-              "phy.passthrough", "profile_link_loop", "sim.cell", "mac.harq", "mac.lcp",
-              "mac.pdu", "mac.scheduler", "rlc.um", "rlc.am", "app.traffic", "metrics.kpi",
-              "metrics.logger", "utils.prng", "profile_cell", "topology.blockages",
-              "topology.osm", "topology.wraparound", "sim.network", "metrics.persist",
-              "api", "viz", "profile_network", "sim.block", "parallel.mesh",
+              "ops.csi", "ops.csirs", "ops.srs", "ops.pathloss", "phy.passthrough",
+              "sim.cell", "mac.harq", "mac.lcp", "mac.pdu", "mac.scheduler", "rlc.um",
+              "rlc.am", "app.traffic", "metrics.kpi", "metrics.logger", "utils.prng",
+              "utils.tracing", "topology.blockages", "topology.osm", "topology.wraparound",
+              "sim.network", "metrics.persist", "api", "viz", "sim.block", "parallel.mesh",
               "parallel.distributed", "parallel.cells", "parallel.time_blocks"):
         assert f"isac_tpu_torch.{m}" in mods, m
     # the torch-only multi-process worker: no jax / isac_tpu import anywhere in
