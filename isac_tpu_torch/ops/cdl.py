@@ -4,7 +4,8 @@ counterpart of isac_tpu/ops/cdl.py).
 Ray phases and coupling are drawn once per link from a seed with numpy, in
 the reference's exact RNG call order, so the same seed gives the same
 CDLLink arrays. The single-link frequency response is here; a batch of links
-goes through isac_tpu_torch/parallel/links.py.
+goes through isac_tpu_torch/parallel/links.py. The engines' and the banks'
+ray frequency phases are built on their device by freq_phases_on.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from isac_tpu_torch.utils import tracing
 from isac_tpu_torch.utils.device import resolve_device
 from isac_tpu_torch.utils.geometry import SPEED_OF_LIGHT
 
@@ -296,6 +298,39 @@ def freq_phases(tau: np.ndarray, freqs: np.ndarray) -> np.ndarray:
     ~100 cycles)."""
     ang = -2.0 * np.pi * freqs.astype(np.float64)[..., :, None] * tau[..., None, :]
     return np.exp(1j * ang).astype(np.complex64)
+
+
+_PHASE_BLOCK = 1 << 20  # phases a block of freq_phases_on: 8 MiB of float64 angles
+
+
+def freq_phases_on(tau: np.ndarray, freqs: np.ndarray, device) -> torch.Tensor:
+    """freq_phases(tau, freqs) built on `device`: [..., K, R] complex64.
+
+    Only tau and -2 pi f (float64) are uploaded. The phase is formed in
+    float64 in the host's order, (-2 pi f) * tau, and its float64 cos and
+    sin are each rounded once to float32 into the output, so an element
+    differs from the host's only where the two float64 libraries' last bits
+    straddle a float32 rounding boundary (at most one float32 ulp). Blocks of
+    at most _PHASE_BLOCK phases, over links and subcarriers, bound the
+    float64 transient; no complex128 tensor is made. Counts the phases built
+    as ``rays.device_phases``."""
+    tau = np.asarray(tau, np.float64)
+    w = (-2.0 * np.pi) * np.asarray(freqs, np.float64)
+    n_sc, n_rays = w.size, tau.shape[-1]
+    host = torch.as_tensor(np.concatenate([w, tau.ravel()]), device=device)  # one upload
+    w_d, tau_d = host[:n_sc], host[n_sc:].view(-1, n_rays)  # [K], [L, R]
+    out = torch.empty((tau_d.shape[0], n_sc, n_rays), dtype=torch.complex64, device=device)
+    parts = torch.view_as_real(out)  # [L, K, R, 2]
+    links_step = max(1, _PHASE_BLOCK // (n_sc * n_rays))
+    sc_step = max(1, min(n_sc, _PHASE_BLOCK // n_rays))
+    for l0 in range(0, tau_d.shape[0], links_step):
+        for k0 in range(0, n_sc, sc_step):
+            ls, ks = slice(l0, l0 + links_step), slice(k0, k0 + sc_step)
+            ang = w_d[None, ks, None] * tau_d[ls, None, :]
+            torch.cos(ang, out=parts[ls, ks, :, 0])
+            torch.sin(ang, out=parts[ls, ks, :, 1])
+    tracing.count("rays.device_phases", out.numel())
+    return out.reshape(*tau.shape[:-1], n_sc, n_rays)
 
 
 def time_phases(nu: np.ndarray, t_syms: np.ndarray) -> np.ndarray:

@@ -31,8 +31,10 @@ class BatchedLinks:
     """Ray constants for L links, zero-padded to a common ray count.
 
     H_l[t, f] = sum_r coeff_l[..., r] exp(2j pi nu_lr t) exp(-2j pi f tau_lr).
-    coeff lives on the device; tau and nu stay float64 on the host, where the
-    phases are built."""
+    coeff lives on the device; tau and nu stay float64 on the host. The
+    engines and the banks build the frequency phases from tau on the device
+    (ops/cdl.py:freq_phases_on), the time phases of each slot from nu on the
+    host."""
 
     coeff: torch.Tensor  # [L, rx, tx, R] complex64 (zero rows where padded)
     tau: np.ndarray  # [L, R]

@@ -20,7 +20,8 @@ budget), as in the reference. What differs in form:
   threefry normals as `jax.random` (bits exact, normals within ~2 ulps).
 - The channel is the reference's host-phase path: float64 slow-time phases on
   the host, one complex64 upload and one ray contraction per slot and
-  direction, cached for 4 slots.
+  direction, cached for 4 slots. The frequency phases are built once, on the
+  device, in float64 (ops/cdl.py `freq_phases_on`).
 - The slot is split into phases (`_slot_begin`, `_dl_tx_phase`,
   `_dl_rx_phase(ext=)`, `_ul_tx_phase`, `_ul_rx_phase(ext=)`,
   `_slot_epilogue`) so that sim/network.py can run co-channel cells in
@@ -36,11 +37,12 @@ budget), as in the reference. What differs in form:
 
 Spans (utils/tracing.py): ``build.engine`` around the constructor (with
 ``build.engine.links``, the CDL draws, and ``build.engine.rays``, the stacked
-ray constants and their upload), ``cell.slot`` around each slot of the slot
-loop, and inside it a span ``cell.<stage>`` for every stage (tick, plan,
-dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback; segment around a
-block-mode segment's device work); ``cell.finalize`` (flush and KPIs) and
-``cell.sensing`` (the post-pass, its noise draw in ``sensing.noise``).
+ray constants, their upload and the device frequency phases), ``cell.slot``
+around each slot of the slot loop, and inside it a span ``cell.<stage>`` for
+every stage (tick, plan, dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback;
+segment around a block-mode segment's device work); ``cell.finalize`` (flush
+and KPIs) and ``cell.sensing`` (the post-pass, its noise draw in
+``sensing.noise``).
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ from isac_tpu_torch.mac.pdu import build_mac_pdu, parse_mac_pdu
 from isac_tpu_torch.mac.scheduler import Grant, Scheduler
 from isac_tpu_torch.metrics.kpi import CellMetrics, peak_spectral_efficiency
 from isac_tpu_torch.metrics.logger import MacPcapWriter, SchedulingLogger
-from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases, subcarrier_freqs, time_phases
+from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases_on, subcarrier_freqs, time_phases
 from isac_tpu_torch.ops.csi import (
     SINR_TO_CQI_UL,
     cqi_select,
@@ -293,7 +295,8 @@ class CellSimulator:
             self._sym_t = (
                 self.info.symbol_starts(1, 0).astype(np.float64) / self.info.sample_rate
             )  # intra-slot symbol times [14]
-            # stacked ray constants, uploaded once: one contraction per slot and
+            # stacked ray constants, on the device once (the frequency phases
+            # built there from float64 tau): one contraction per slot and
             # direction gives every UE's H
             self._h_cache: dict = {}
             self._bl = {}
@@ -302,8 +305,7 @@ class CellSimulator:
                     bl = stack_links(links, device=self.dev)
                     L, n_rx, n_tx2, R = bl.coeff.shape
                     self._bl[d] = {
-                        "ff": torch.as_tensor(freq_phases(bl.tau, self.freqs),
-                                              device=self.dev),  # [L, K, R]
+                        "ff": freq_phases_on(bl.tau, self.freqs, self.dev),  # [L, K, R]
                         "c2": bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx2),
                         "nu": bl.nu,
                         "shape": (n_rx, n_tx2),

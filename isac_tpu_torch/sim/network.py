@@ -22,8 +22,10 @@ pathlosses, and the due slots of every cell's results. What differs in form:
 
 - The slot response of a bank is the engine's host-phase form
   (sim/cell.py `_h_slot`): float64 slow-time phases on the host, one
-  complex64 upload and one ray contraction, cached for one slot. The TPU
-  device-phase branch (`_dev_path`) is not ported.
+  complex64 upload and one ray contraction, cached for one slot; its
+  frequency phases are built at the bank's build on the device, in float64
+  (ops/cdl.py `freq_phases_on`). The TPU device-phase branch (`_dev_path`)
+  is not ported.
 - Every cell's due results come back in ONE device-to-host copy per network
   slot (`_materialize_all` over sim/cell.py `_readback`), in place of the
   reference's f32 bit-packed relay fetch; the due slots are the same.
@@ -56,7 +58,7 @@ import torch
 
 from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
 from isac_tpu_torch.metrics.kpi import ecdf
-from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases, time_phases
+from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases_on, time_phases
 from isac_tpu_torch.ops.pathloss import pathloss as pathloss_db
 from isac_tpu_torch.parallel.cells import network_cross_rx
 from isac_tpu_torch.parallel.links import stack_links
@@ -126,7 +128,7 @@ class _RayBank:
         bl = stack_links(links, device=dev)
         L, n_rx, n_tx, R = bl.coeff.shape
         self.dev = dev
-        self._ff = torch.as_tensor(freq_phases(bl.tau, dst_sim.freqs), device=dev)  # [L, K, R]
+        self._ff = freq_phases_on(bl.tau, dst_sim.freqs, dev)  # [L, K, R]
         self._c2 = bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx)
         self._nu = bl.nu
         self._shape = (n_rx, n_tx)
