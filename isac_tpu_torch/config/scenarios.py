@@ -8,6 +8,8 @@ CDL-D (LoS) fading, OSM city bounding box.
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 
 from isac_tpu_torch.config.params import (
@@ -89,11 +91,17 @@ def multi_ue_cell(sim: SimulationParameters, num_ues: int = 8, seed: int = 0) ->
     return sim
 
 
-def multi_cell(sim: SimulationParameters, num_cells: int = 2, seed: int = 0) -> SimulationParameters:
-    """BASELINE config #5: multi-cell network (hex wraparound positions)."""
+def multi_cell(sim: SimulationParameters, num_cells: int = 2, seed: int = 0,
+               num_ues: int = 5) -> SimulationParameters:
+    """BASELINE config #5: `num_cells` co-channel copies of the shipped cell
+    on the hexagonal grid of sites 500 m apart (the centre site, then ring
+    after ring: 7 sites fill the first ring, 19 the second), with `num_ues`
+    UEs in every cell, the first included. No wrap-around is applied: the
+    outer ring sees only the sites inside the layout."""
     from isac_tpu_torch.topology.wraparound import hex_cell_centers
 
     sim = open_street_map_city(sim, seed=seed)
+    sim.ue["cell1"] = replace(sim.ue["cell1"], num_ues=num_ues)
     base = sim.bs["cell1"]
     centers = hex_cell_centers(num_cells, inter_site_distance=500.0)
     for i in range(num_cells):
@@ -103,7 +111,7 @@ def multi_cell(sim: SimulationParameters, num_cells: int = 2, seed: int = 0) -> 
             **{**base.__dict__, "cell_id": i + 1, "position": pos}
         )
         for m, default in (
-            (sim.ue, UEParams(num_ues=5, seed=seed + i)),
+            (sim.ue, UEParams(num_ues=num_ues, seed=seed + i)),
             (sim.target, TargetParams(seed=seed + 100 + i)),
             (sim.scheduling, SchedulingParams()),
             (sim.traffic, TrafficParams(seed=seed + 200 + i)),

@@ -186,6 +186,13 @@ def build_cdl_link(
 ) -> CDLLink:
     """Generate per-ray channel constants per TR 38.901 §7.7.1 steps 1-4.
 
+    Every ray of a cluster carries the cluster's delay exactly (the same
+    float64 value; only angles, coupling, phases and Doppler differ between
+    them), so the rays of a link take as many distinct delays as its
+    clusters have (CDL-A 23 among 460 rays, CDL-D 13 among 261: its LoS ray
+    shares cluster 1's zero delay). The network banks contract per distinct
+    delay on that fact (delay_clusters).
+
     Cross-polarized arrays alternate +/- slant between consecutive elements when
     *_pol_pairs is set (matching the [.. p ..] antenna geometry convention of
     the reference, ula.m / upa.m).
@@ -331,6 +338,26 @@ def freq_phases_on(tau: np.ndarray, freqs: np.ndarray, device) -> torch.Tensor:
             torch.sin(ang, out=parts[ls, ks, :, 1])
     tracing.count("rays.device_phases", out.numel())
     return out.reshape(*tau.shape[:-1], n_sc, n_rays)
+
+
+def delay_clusters(taus: list) -> tuple:
+    """The distinct delays of each link and the cluster of each ray.
+
+    taus: each link's ray delays [R_l] (float64, unpadded). Returns (delays
+    [L, N] float64, index [L, R] int64) with N the largest count of distinct
+    delays among the links and R the largest ray count: ray r of link l has
+    delay delays[l, index[l, r]] exactly; a link with fewer delays is padded
+    with delay 0 and no ray, a link with fewer rays with index -1 (no
+    cluster). With H = sum_r c_r e^{2j pi nu_r t} e^{-2j pi f tau_r}, this
+    gives H = sum_n e^{-2j pi f delays_n} g_n(t), g_n(t) = sum over the rays
+    r of cluster n of c_r e^{2j pi nu_r t}."""
+    per_link = [np.unique(np.asarray(t, np.float64), return_inverse=True) for t in taus]
+    delays = np.zeros((len(per_link), max(d.size for d, _ in per_link)))
+    index = np.full((len(per_link), max(inv.size for _, inv in per_link)), -1, np.int64)
+    for l, (d, inv) in enumerate(per_link):
+        delays[l, :d.size] = d
+        index[l, :inv.size] = inv
+    return delays, index
 
 
 def time_phases(nu: np.ndarray, t_syms: np.ndarray) -> np.ndarray:

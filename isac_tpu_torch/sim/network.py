@@ -20,12 +20,15 @@ seed * 131 + d * 17; cross link (s, u): seed * 7919 + s * 100003 + u, plus
 off-channel rows carry amplitude 0, the host float64 amplitudes and
 pathlosses, and the due slots of every cell's results. What differs in form:
 
-- The slot response of a bank is the engine's host-phase form
-  (sim/cell.py `_h_slot`): float64 slow-time phases on the host, one
-  complex64 upload and one ray contraction, cached for one slot; its
-  frequency phases are built at the bank's build on the device, in float64
-  (ops/cdl.py `freq_phases_on`). The TPU device-phase branch (`_dev_path`)
-  is not ported.
+- The slot response of a bank is contracted per cluster delay, not per
+  ray (`_RayBank`): the frequency phases of each link's distinct delays are
+  built once on the device in float64 (ops/cdl.py `freq_phases_on`); each
+  slot the float64 slow-time phases, made on the host and uploaded as
+  complex64, are folded into the ray coefficients delay by delay, and one
+  batched matrix product over the delays gives the response. A destination's
+  DL cross term holds its bank's response for the slot only; the TDD uplink
+  asks each bank for the one row it reads (`h_row`). The TPU device-phase
+  branch (`_dev_path`) is not ported.
 - Every cell's due results come back in ONE device-to-host copy per network
   slot (`_materialize_all` over sim/cell.py `_readback`), in place of the
   reference's f32 bit-packed relay fetch; the due slots are the same.
@@ -33,9 +36,9 @@ pathlosses, and the due slots of every cell's results. What differs in form:
   cross terms of every destination come from one `network_cross_rx` call per
   slot (parallel/cells.py), each rank contracting its block of destinations
   after one all_gather of the transmit grids; every rank runs every cell's
-  engine. Cells that differ in shape or ray count cannot stack on the mesh
-  axis and take the per-destination path, as in the reference; `mesh` is
-  then None after the banks are built.
+  engine. Cells that differ in shape cannot stack on the mesh axis and
+  take the per-destination path, as in the reference; `mesh` is then None
+  after the banks are built.
 
 Spans (utils/tracing.py): ``build.cells`` (validation and the per-cell
 parameters), ``build.los`` (the city and every line-of-sight test) and
@@ -44,8 +47,12 @@ runner a ``network.slot`` span per slot, and inside it one span
 ``network.<stage>`` per stage (readback, dl_tx, dl_cross, dl_rx, ul_tx,
 ul_cross, ul_rx, epilogue). The engine's own ``cell.*`` spans sit inside
 them, and ``network.banks`` (a bank's build and slot response) inside the
-cross stages that ask for it, with ``network.bank_h`` around the slot
-response's device work.
+cross stages that ask for it, with ``network.bank_h`` (device; attributes
+``links``, ``subcarriers``, ``delays``, ``rays``, ``ports``) around the slot
+response's device work, the fold and the contraction. Each ``network.slot``
+counts ``network.bank_bytes`` once: the runner's ``bank_bytes``, the most
+bytes the banks have held on the device at once since they were built
+(constants and cached slot responses).
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ import torch
 
 from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
 from isac_tpu_torch.metrics.kpi import ecdf
-from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases_on, time_phases
+from isac_tpu_torch.ops.cdl import build_cdl_link, delay_clusters, freq_phases_on, time_phases
 from isac_tpu_torch.ops.pathloss import pathloss as pathloss_db
 from isac_tpu_torch.parallel.cells import network_cross_rx
 from isac_tpu_torch.parallel.links import stack_links
@@ -119,18 +126,47 @@ def resolve_los_cross(cells: list, sim: SimulationParameters):
 
 
 class _RayBank:
-    """One batched ray tensor for every (source, UE) pair of a destination:
-    the constants live on the destination engine's device, and h(slot) is one
-    ray contraction per slot, cached for that slot."""
+    """Every (source, UE) link of a destination as one batched channel in the
+    cluster form, its constants on the destination engine's device.
+
+    The rays of a CDL cluster share its delay (ops/cdl.py build_cdl_link), so
+    a link's response is a sum over its N distinct delays, not its R rays:
+    H[l, s, k, a] = sum_n ffc[l, k, n] g[l, n, s, a], with
+    g[l, n, s, a] = sum over the rays r of delay n of ft[l, s, r] c[l, r, a].
+    The bank keeps the frequency phases per delay ffc [L, K, N] (float64
+    angles on the device, freq_phases_on) and the ray coefficients laid out
+    by delay, [L, N, J, rx*tx] with J the most rays a delay has (zero where a
+    delay has fewer); the Dopplers, in the same layout, stay on the host. A
+    slot response folds the slot's time phases into the coefficients, one
+    [14, J] x [J, rx*tx] product a delay, then contracts ffc with g in one
+    batched matrix product: no [L, 14, K, R] phase tensor is formed.
+
+    h(slot) is the whole response, cached for that slot until release();
+    h_row(slot, s) is source row s alone, computed on its own."""
 
     def _stack(self, links: list, dst_sim: CellSimulator):
         dev = dst_sim.dev
         bl = stack_links(links, device=dev)
         L, n_rx, n_tx, R = bl.coeff.shape
+        delays, index = delay_clusters([l.tau for l in links])
+        N = delays.shape[1]
+        # slots[l, n, j]: the j-th ray of delay n of link l, or R (a zero ray)
+        J = max(int(np.bincount(ix[ix >= 0]).max()) for ix in index)
+        slots = np.full((L, N, J), R, np.int64)
+        for l, ix in enumerate(index):
+            rays = np.argsort(ix[ix >= 0], kind="stable")  # by delay, in build order within
+            n = ix[rays]
+            slots[l, n, np.arange(n.size) - np.searchsorted(n, n)] = rays
+        c = torch.cat([bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx),
+                       bl.coeff.new_zeros((L, 1, n_rx * n_tx))], dim=1)
         self.dev = dev
-        self._ff = freq_phases_on(bl.tau, dst_sim.freqs, dev)  # [L, K, R]
-        self._c2 = bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx)
-        self._nu = bl.nu
+        self._ffc = freq_phases_on(delays, dst_sim.freqs, dev)  # [L, K, N]
+        self._cn = c[torch.arange(L, device=dev)[:, None],
+                     torch.as_tensor(slots.reshape(L, N * J), device=dev)].view(
+                         L, N, J, n_rx * n_tx)  # [L, N, J, rx*tx]
+        self._nu = np.take_along_axis(np.pad(bl.nu, ((0, 0), (0, 1))),
+                                      slots.reshape(L, N * J), axis=1)  # [L, N*J]
+        self._n_rays = R
         self._shape = (n_rx, n_tx)
         self._sym_t = dst_sim._sym_t
         self._slot_dur = dst_sim.carrier.slot_duration_s
@@ -138,21 +174,44 @@ class _RayBank:
         self._h_cache: dict = {}
 
     def h(self, slot: int) -> torch.Tensor:
-        """[S, U, 14, K, rx, tx] for one slot (cached; the DL term and the
-        TDD uplink's reciprocity share it)."""
+        """[S, U, 14, K, rx, tx] for one slot, cached until release() or the
+        next slot's call (the DL cross term and the capture share it)."""
         if slot not in self._h_cache:
             self._h_cache.clear()
             n_rx, n_tx = self._shape
-            t = slot * self._slot_dur + self._sym_t
-            ft = torch.as_tensor(time_phases(self._nu, t), device=self.dev)  # [L, 14, R]
-            L, R = ft.shape[0], ft.shape[-1]
-            with tracing.span("network.bank_h", device=True):
-                ph = ft[:, :, None, :] * self._ff[:, None, :, :]  # [L, 14, K, R]
-                h = torch.matmul(ph.reshape(L, -1, R), self._c2)  # [L, 14*K, rx*tx]
-            del ph
-            self._h_cache[slot] = h.reshape(self.n_cells, self.n_ues, 14, self._n_sc,
-                                            n_rx, n_tx)
+            self._h_cache[slot] = self._response(slot, slice(None)).reshape(
+                self.n_cells, self.n_ues, 14, self._n_sc, n_rx, n_tx)
         return self._h_cache[slot]
+
+    def h_row(self, slot: int, s: int) -> torch.Tensor:
+        """h(slot)[s], [U, 14, K, rx, tx], computed alone and not kept (the
+        TDD uplink reads one row of every other cell's bank)."""
+        return self._response(slot, slice(s * self.n_ues, (s + 1) * self.n_ues))
+
+    def release(self):
+        """Drop the cached slot response."""
+        self._h_cache.clear()
+
+    def nbytes(self) -> int:
+        """Bytes the bank holds on its device: constants and cached response."""
+        held = [self._ffc, self._cn, *self._h_cache.values()]
+        return sum(t.numel() * t.element_size() for t in held)
+
+    def _response(self, slot: int, links: slice) -> torch.Tensor:
+        """[L', 14, K, rx, tx] of the bank's links `links` (a strided view of
+        one [L', K, 14 * rx * tx] product)."""
+        n_rx, n_tx = self._shape
+        t = slot * self._slot_dur + self._sym_t
+        ft = torch.as_tensor(time_phases(self._nu[links], t), device=self.dev)  # [L', 14, N*J]
+        ffc, cn = self._ffc[links], self._cn[links]
+        L, N, J, A = cn.shape
+        K = ffc.shape[1]
+        with tracing.span("network.bank_h", device=True, links=L, subcarriers=K, delays=N,
+                          rays=self._n_rays, ports=A):
+            # g[l, n, s, a] = sum over the rays j of delay n of ft[l, s, (n, j)] c[l, n, j, a]
+            g = torch.matmul(ft.view(L, 14, N, J).transpose(1, 2), cn)  # [L', N, 14, A]
+            h = torch.matmul(ffc, g.view(L, N, 14 * A))  # [L', K, 14 * A]
+        return h.view(L, K, 14, n_rx, n_tx).transpose(1, 2)
 
 
 class _UlCrossBank(_RayBank):
@@ -208,9 +267,9 @@ class _UlCrossBank(_RayBank):
 
 class _CrossBank(_RayBank):
     """Batched cross-cell CDL bank: EVERY source gNB -> one destination
-    cell's UEs in one stacked ray tensor. S = number of cells; the self and
-    off-channel rows carry amplitude 0 and active=False (kept so that the
-    shapes stay rectangular)."""
+    cell's UEs in one batched channel (_RayBank). S = number of cells; the
+    self and off-channel rows carry amplitude 0 and active=False (kept so
+    that the shapes stay rectangular)."""
 
     def __init__(self, dst_sim: CellSimulator, sims: list, dst_idx: int,
                  cross_los: dict, seed: int = 0):
@@ -294,6 +353,7 @@ class SyncNetworkRunner:
         self._zero_grids: dict = {}
         self._net_rx = None  # the mesh's cross step, set by _build_banks
         self.stage_s: dict = {}
+        self.bank_bytes = 0  # the most bytes the banks held on the device at once
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -311,16 +371,21 @@ class SyncNetworkRunner:
                            seed=self.seed * 131 + d * 17)
                 for d, sim in enumerate(self.sims)
             ]
+        self._note_bank_bytes()
         if self.mesh is not None:
             shapes = {(s.n_sc, s.n_tx, s.n_ues, s.cell.gnb.dl_carrier_freq) for s in self.sims}
-            rays = {b._ff.shape[-1] for b in self.banks}
-            if len(shapes) != 1 or len(rays) != 1:
+            if len(shapes) != 1:
                 self.mesh = None  # heterogeneous cells cannot stack on the mesh axis
             else:
                 self._net_rx = network_cross_rx(self.mesh)
                 self._amp_all = torch.as_tensor(
                     np.stack([b.amp * b.active[:, None] for b in self.banks]),
                     device=self.sims[0].dev)  # [C_dst, C_src, U]
+
+    def _note_bank_bytes(self):
+        """Raise bank_bytes to what the banks hold on the device now."""
+        held = sum(b.nbytes() for b in (self.banks or []) + (self.ul_banks or []))
+        self.bank_bytes = max(self.bank_bytes, held)
 
     def _zero_grid(self, sim: CellSimulator) -> torch.Tensor:
         """The stand-in grid of a silent or off-channel source."""
@@ -346,6 +411,7 @@ class SyncNetworkRunner:
         amp = torch.as_tensor(bank.amp * mask[:, None].astype(np.float32), device=bank.dev)
         with self._stage("banks"):
             h = bank.h(slot)
+        self._note_bank_bytes()
         return torch.einsum("xtsk,xuskat,xu->uask", tx, h, amp.to(torch.complex64))
 
     def _dl_ext_mesh(self, slot: int, states: list) -> torch.Tensor:
@@ -357,6 +423,7 @@ class SyncNetworkRunner:
         amp_all = self._amp_all * torch.as_tensor(present, device=self._amp_all.device)[None, :, None]
         with self._stage("banks"):
             h = torch.stack([b.h(slot) for b in self.banks])  # [C_dst, C_src, U, 14, K, rx, tx]
+        self._note_bank_bytes()
         return self._net_rx(tx, h, amp_all)
 
     def _ensure_ul_banks(self):
@@ -371,8 +438,9 @@ class SyncNetworkRunner:
     def _ul_ext(self, d: int, slot: int, ul_states: list):
         """Sum of the other cells' co-channel uplinks at gNB d, [n_rx, 14, K],
         or None. TDD (shared carrier): the cross channel UE_{s,u} -> gNB_d is
-        the transpose of the DL bank entry gNB_d -> UE_{s,u} (reciprocity).
-        FDD: the non-reciprocal _UlCrossBank on the UL carrier."""
+        the transpose of the DL bank entry gNB_d -> UE_{s,u} (reciprocity),
+        row d of cell s's bank (h_row). FDD: the non-reciprocal _UlCrossBank
+        on the UL carrier."""
         dst = self.sims[d]
         tdd_reciprocal = dst.cell.gnb.ul_carrier_freq == dst.cell.gnb.dl_carrier_freq
         if not tdd_reciprocal:
@@ -410,7 +478,11 @@ class SyncNetworkRunner:
             grids = torch.stack(st["all_grids"]) * torch.as_tensor(
                 amp, device=dst.dev)[:, None, None, None]
             with self._stage("banks"):
-                h = self.banks[s].h(slot)[d] if tdd_reciprocal else self.ul_banks[d].h(slot)[s]
+                if tdd_reciprocal:
+                    h = self.banks[s].h_row(slot, d)
+                else:
+                    h = self.ul_banks[d].h(slot)[s]
+                    self._note_bank_bytes()
             # TDD: the DL entry gNB_d -> UE_{s,u} with its antenna axes swapped
             eq = "gtsk,gskta->ask" if tdd_reciprocal else "gtsk,gskat->ask"
             term = torch.einsum(eq, grids, h[ue_idx])
@@ -445,6 +517,8 @@ class SyncNetworkRunner:
                 if self.mesh is not None and any(st is not None for st in states):
                     with self._stage("dl_cross"):
                         ext_all = self._dl_ext_mesh(slot, states)
+                        for b in self.banks:
+                            b.release()
                 for d, (sim, info) in enumerate(zip(self.sims, infos)):
                     if states[d] is None:
                         continue
@@ -453,6 +527,7 @@ class SyncNetworkRunner:
                     else:
                         with self._stage("dl_cross"):
                             ext = self._dl_ext(d, slot, states)
+                            self.banks[d].release()  # the uplink reads rows (h_row)
                     with self._stage("dl_rx"):
                         sim._dl_rx_phase(slot, info["csi_slot"], states[d], ext=ext)
                 # 3) UL: every cell's granted uplinks first, then each gNB
@@ -467,12 +542,15 @@ class SyncNetworkRunner:
                         continue
                     with self._stage("ul_cross"):
                         ext = self._ul_ext(d, slot, ul_states) if self.ul_interference else None
+                        if self.ul_banks is not None:
+                            self.ul_banks[d].release()
                     with self._stage("ul_rx"):
                         sim._ul_rx_phase(slot, ul_states[d], ext=ext)
                 # 4) BSR + SRS
                 with self._stage("epilogue"):
                     for sim, info in zip(self.sims, infos):
                         sim._slot_epilogue(slot, info)
+                tracing.count("network.bank_bytes", self.bank_bytes)
         return [sim.finalize() for sim in self.sims]
 
 

@@ -110,7 +110,7 @@ def test_engine_and_banks_build_on_device(clean, monkeypatch):
     tracing.disable()
 
     ffs = [s._bl[d]["ff"] for s in [engine, *runner.sims] for d in ("DL", "UL")]
-    ffs += [b._ff for b in runner.banks]
+    ffs += [b._ffc for b in runner.banks]
     assert len(ffs) == len(built) == 2 * 4 + 3
     assert [id(ff) for ff in ffs] == [id(out) for _, _, out in built]
     for tau, freqs, out in built:
