@@ -5,7 +5,8 @@ Ray phases and coupling are drawn once per link from a seed with numpy, in
 the reference's exact RNG call order, so the same seed gives the same
 CDLLink arrays. The single-link frequency response is here; a batch of links
 goes through isac_tpu_torch/parallel/links.py. The engines' and the banks'
-ray frequency phases are built on their device by freq_phases_on.
+ray frequency phases are built on their device by freq_phases_on, the banks'
+slow-time phases by time_phases_on.
 """
 
 from __future__ import annotations
@@ -364,6 +365,24 @@ def time_phases(nu: np.ndarray, t_syms: np.ndarray) -> np.ndarray:
     """exp(2j pi nu t) [..., S, R]."""
     ang = 2.0 * np.pi * np.asarray(t_syms, np.float64)[..., :, None] * nu[..., None, :]
     return np.exp(1j * ang).astype(np.complex64)
+
+
+def time_phases_on(nu: torch.Tensor, t_syms: torch.Tensor) -> torch.Tensor:
+    """time_phases(nu, t_syms) built where its float64 tensors are: nu
+    [..., R] and t_syms [..., S] on one device give [..., S, R] complex64.
+
+    Nothing is uploaded. The phase is formed in float64 in the host's order,
+    (2 pi t) * nu, and its float64 cos and sin are each rounded once to
+    float32 into the output, so an element differs from the host's by at most
+    one float32 ulp, as in freq_phases_on; no complex128 tensor is made.
+    Counts the phases built as ``rays.device_time_phases``."""
+    ang = (2.0 * np.pi * t_syms)[..., :, None] * nu[..., None, :]
+    out = torch.empty(ang.shape, dtype=torch.complex64, device=ang.device)
+    parts = torch.view_as_real(out)
+    torch.cos(ang, out=parts[..., 0])
+    torch.sin(ang, out=parts[..., 1])
+    tracing.count("rays.device_time_phases", out.numel())
+    return out
 
 
 def cdl_frequency_response(link: CDLLink, t_syms: np.ndarray, freqs: np.ndarray,

@@ -23,12 +23,14 @@ pathlosses, and the due slots of every cell's results. What differs in form:
 - The slot response of a bank is contracted per cluster delay, not per
   ray (`_RayBank`): the frequency phases of each link's distinct delays are
   built once on the device in float64 (ops/cdl.py `freq_phases_on`); each
-  slot the float64 slow-time phases, made on the host and uploaded as
-  complex64, are folded into the ray coefficients delay by delay, and one
-  batched matrix product over the delays gives the response. A destination's
-  DL cross term holds its bank's response for the slot only; the TDD uplink
-  asks each bank for the one row it reads (`h_row`). The TPU device-phase
-  branch (`_dev_path`) is not ported.
+  slot the slow-time phases, formed on the device in float64 from the
+  Dopplers and symbol times kept there (ops/cdl.py `time_phases_on`), are
+  folded into the ray coefficients delay by delay, and one batched matrix
+  product over the delays gives the response. A destination's DL cross term
+  holds its bank's response for the slot only; the TDD uplink asks each bank
+  for the one row it reads (`h_row`). The TPU device-phase branch
+  (`_dev_path`), which forms those phases from float32 angles, is not
+  ported.
 - Every cell's due results come back in ONE device-to-host copy per network
   slot (`_materialize_all` over sim/cell.py `_readback`), in place of the
   reference's f32 bit-packed relay fetch; the due slots are the same.
@@ -49,10 +51,11 @@ ul_cross, ul_rx, epilogue). The engine's own ``cell.*`` spans sit inside
 them, and ``network.banks`` (a bank's build and slot response) inside the
 cross stages that ask for it, with ``network.bank_h`` (device; attributes
 ``links``, ``subcarriers``, ``delays``, ``rays``, ``ports``) around the slot
-response's device work, the fold and the contraction. Each ``network.slot``
-counts ``network.bank_bytes`` once: the runner's ``bank_bytes``, the most
-bytes the banks have held on the device at once since they were built
-(constants and cached slot responses).
+response's device work, the fold and the contraction (the slot's time
+phases are built just before it, counted as ``rays.device_time_phases``).
+Each ``network.slot`` counts ``network.bank_bytes`` once: the runner's
+``bank_bytes``, the most bytes the banks have held on the device at once
+since they were built (constants and cached slot responses).
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ import torch
 
 from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
 from isac_tpu_torch.metrics.kpi import ecdf
-from isac_tpu_torch.ops.cdl import build_cdl_link, delay_clusters, freq_phases_on, time_phases
+from isac_tpu_torch.ops.cdl import build_cdl_link, delay_clusters, freq_phases_on, time_phases_on
 from isac_tpu_torch.ops.pathloss import pathloss as pathloss_db
 from isac_tpu_torch.parallel.cells import network_cross_rx
 from isac_tpu_torch.parallel.links import stack_links
@@ -136,10 +139,12 @@ class _RayBank:
     The bank keeps the frequency phases per delay ffc [L, K, N] (float64
     angles on the device, freq_phases_on) and the ray coefficients laid out
     by delay, [L, N, J, rx*tx] with J the most rays a delay has (zero where a
-    delay has fewer); the Dopplers, in the same layout, stay on the host. A
-    slot response folds the slot's time phases into the coefficients, one
-    [14, J] x [J, rx*tx] product a delay, then contracts ffc with g in one
-    batched matrix product: no [L, 14, K, R] phase tensor is formed.
+    delay has fewer) and the Dopplers in the same layout (float64, zero
+    where the coefficients are), with the symbol times. A slot response
+    builds the slot's time phases there (time_phases_on) and folds them into
+    the coefficients, one [14, J] x [J, rx*tx] product a delay, then
+    contracts ffc with g in one batched matrix product: no [L, 14, K, R]
+    phase tensor is formed and nothing is uploaded.
 
     h(slot) is the whole response, cached for that slot until release();
     h_row(slot, s) is source row s alone, computed on its own."""
@@ -164,11 +169,12 @@ class _RayBank:
         self._cn = c[torch.arange(L, device=dev)[:, None],
                      torch.as_tensor(slots.reshape(L, N * J), device=dev)].view(
                          L, N, J, n_rx * n_tx)  # [L, N, J, rx*tx]
-        self._nu = np.take_along_axis(np.pad(bl.nu, ((0, 0), (0, 1))),
-                                      slots.reshape(L, N * J), axis=1)  # [L, N*J]
+        self._nu = torch.as_tensor(np.take_along_axis(np.pad(bl.nu, ((0, 0), (0, 1))),
+                                                      slots.reshape(L, N * J), axis=1),
+                                   device=dev)  # [L, N*J] float64
         self._n_rays = R
         self._shape = (n_rx, n_tx)
-        self._sym_t = dst_sim._sym_t
+        self._sym_t = torch.as_tensor(dst_sim._sym_t, device=dev)  # [14] float64
         self._slot_dur = dst_sim.carrier.slot_duration_s
         self._n_sc = dst_sim.n_sc
         self._h_cache: dict = {}
@@ -194,15 +200,14 @@ class _RayBank:
 
     def nbytes(self) -> int:
         """Bytes the bank holds on its device: constants and cached response."""
-        held = [self._ffc, self._cn, *self._h_cache.values()]
+        held = [self._ffc, self._cn, self._nu, self._sym_t, *self._h_cache.values()]
         return sum(t.numel() * t.element_size() for t in held)
 
     def _response(self, slot: int, links: slice) -> torch.Tensor:
         """[L', 14, K, rx, tx] of the bank's links `links` (a strided view of
         one [L', K, 14 * rx * tx] product)."""
         n_rx, n_tx = self._shape
-        t = slot * self._slot_dur + self._sym_t
-        ft = torch.as_tensor(time_phases(self._nu[links], t), device=self.dev)  # [L', 14, N*J]
+        ft = time_phases_on(self._nu[links], self._sym_t + slot * self._slot_dur)  # [L', 14, N*J]
         ffc, cn = self._ffc[links], self._cn[links]
         L, N, J, A = cn.shape
         K = ffc.shape[1]

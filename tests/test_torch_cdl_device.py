@@ -1,10 +1,16 @@
 """The CDL ray frequency phases built on the device (ops/cdl.py
-`freq_phases_on`) against the host's float64 `freq_phases`.
+`freq_phases_on`) against the host's float64 `freq_phases`, and the slow-time
+phases (`time_phases_on`) against the host's `time_phases`.
 
 On the CPU: CDL-A and CDL-D delays at 300 ns with padded zero-delay rays over
 a slice of the full carrier's subcarriers; block sizes that do not divide
 the tensor; and, at 12 PRB, every engine's and every bank's phases of an
-engine and a 3-cell network, with the ``rays.device_phases`` count.
+engine and a 3-cell network, with the ``rays.device_phases`` count. The
+time phases of CDL-A and CDL-D Dopplers at 30 m/s padded with zero rays to a
+bank's width, at slot 0 and at the last slot of a 200-frame timeline; a
+3-cell network's bank responses (`h`, `h_row`) against the same fold and
+contraction of host phases, with no NumPy array made a tensor during a
+response and one ``rays.device_time_phases`` count per response.
 
 On the card (marker ``card``; this file imports no JAX, so run it there with
 ``python -m pytest --noconftest tests/test_torch_cdl_device.py -m card -s``):
@@ -15,13 +21,24 @@ import numpy as np
 import pytest
 import torch
 
+from isac_tpu_torch.config.carrier import ofdm_info
 from isac_tpu_torch.ops import cdl
-from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases, freq_phases_on, subcarrier_freqs
+from isac_tpu_torch.ops.cdl import (
+    build_cdl_link,
+    freq_phases,
+    freq_phases_on,
+    subcarrier_freqs,
+    time_phases,
+    time_phases_on,
+)
 from isac_tpu_torch.utils import tracing
 
 CPU = dict(n_rb_override=12, nfft_override=256, device="cpu")
 FULL_FREQS = subcarrier_freqs(3276, 30e3)
 F32_EPS = 2.0 ** -23
+_INFO = ofdm_info(273, 30)
+SYM_T = _INFO.symbol_starts(1, 0).astype(np.float64) / _INFO.sample_rate  # [14] s
+SLOT_S = 0.5e-3
 
 
 @pytest.fixture
@@ -32,17 +49,22 @@ def clean():
     tracing.reset()
 
 
-def _delays(profiles, n_rays: int) -> np.ndarray:
-    """[L, n_rays] float64: each profile's ray delays at 300 ns, zero-padded
-    to n_rays as stack_links pads them."""
+def _padded(attr: str, profiles, n_rays: int, speed: float = 3.0) -> np.ndarray:
+    """[L, n_rays] float64: each profile's ray delays (`tau`) or Dopplers
+    (`nu`) at 300 ns and `speed` m/s, zero-padded to n_rays as stack_links
+    pads them."""
     gnb = np.zeros((16, 3))
     gnb[:, 2] = np.arange(16) * 0.05
     ue = np.zeros((2, 3))
     rows = []
     for i, p in enumerate(profiles):
-        tau = build_cdl_link(p, 300.0, 3.5e9, gnb, ue, ue_velocity=3.0, seed=11 + i).tau
-        rows.append(np.pad(tau, (0, n_rays - tau.size)))
+        x = getattr(build_cdl_link(p, 300.0, 3.5e9, gnb, ue, ue_velocity=speed, seed=11 + i), attr)
+        rows.append(np.pad(x, (0, n_rays - x.size)))
     return np.stack(rows)
+
+
+def _delays(profiles, n_rays: int) -> np.ndarray:
+    return _padded("tau", profiles, n_rays)
 
 
 def _assert_close_to_host(got: torch.Tensor, want: np.ndarray):
@@ -120,6 +142,132 @@ def test_engine_and_banks_build_on_device(clean, monkeypatch):
     assert counted == sum(ff.numel() for ff in ffs)
     rays = {r.name for r in tracing.records() if "rays.device_phases" in r.counts}
     assert rays == {"build.engine.rays", "network.banks"}
+
+
+@pytest.mark.parametrize("slot", [0, 3999], ids=["slot-0", "slot-3999"])
+@pytest.mark.parametrize("profile", ["CDL-A", "CDL-D"])
+def test_time_phases_match_host(clean, profile, slot):
+    """Dopplers of up to 350 Hz laid out to a hex19 bank's 23 delays x 21
+    rays (CDL-D's 261 rays and CDL-A's 460 padded with zero rays); slot 3999
+    ends a 200-frame timeline, ~4400 rad: the largest angles."""
+    nu = _padded("nu", [profile, profile, "CDL-A"], 483, speed=30.0)
+    assert (nu == 0).sum(axis=-1).min() >= 23 and np.abs(nu).max() > 300
+    tracing.enable()
+    with tracing.span("probe"):
+        got = time_phases_on(torch.as_tensor(nu), torch.as_tensor(SYM_T) + slot * SLOT_S)
+    tracing.disable()
+    assert got.dtype == torch.complex64 and got.shape == (3, 14, 483)
+    _assert_close_to_host(got, time_phases(nu, slot * SLOT_S + SYM_T))
+    assert (got[:, :, nu[0] == 0][0] == 1).all()  # a zero ray's phase is exactly 1
+    counted = [r.counts for r in tracing.records() if r.name == "probe"]
+    assert counted == [{"rays.device_time_phases": 3 * 14 * 483}]
+
+
+@pytest.fixture(scope="module")
+def banks():
+    """The banks of a 3-cell network at 12 PRB (TDD DDDSU: slot 4 is U)."""
+    from isac_tpu_torch.config import params, scenarios
+    from isac_tpu_torch.sim import network as net_mod
+
+    torch.set_num_threads(2)
+    sim = scenarios.multi_cell(params.SimulationParameters(), num_cells=3)
+    sim.validate()
+    runner = net_mod.SyncNetworkRunner(params.assign_cell_parameters(sim), seed=6,
+                                       enable_sensing=False, **CPU)
+    runner._build_banks()
+    return runner.banks
+
+
+def _host_phase_form(bank, slot: int, links: slice) -> torch.Tensor:
+    """The bank's fold and contraction with the time phases of the host's
+    time_phases, uploaded as they were before the bank built them."""
+    n_rx, n_tx = bank._shape
+    t = slot * bank._slot_dur + bank._sym_t.cpu().numpy()
+    ft = torch.as_tensor(time_phases(bank._nu[links].cpu().numpy(), t), device=bank.dev)
+    ffc, cn = bank._ffc[links], bank._cn[links]
+    L, N, J, A = cn.shape
+    g = torch.matmul(ft.view(L, 14, N, J).transpose(1, 2), cn)
+    h = torch.matmul(ffc, g.view(L, N, 14 * A))
+    return h.view(L, ffc.shape[1], 14, n_rx, n_tx).transpose(1, 2)
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest over links of max |dH| / max |H|."""
+    d = (got - want).abs().flatten(1).amax(1) / want.abs().flatten(1).amax(1)
+    return float(d.max())
+
+
+@pytest.mark.parametrize("slot", [2, 79], ids=["dl-slot-2", "u-slot-79"])
+def test_bank_responses_match_host_phases(banks, slot):
+    """h(slot) and every source row h_row(slot, s) of each bank against the
+    host-phase form of the same fold and contraction; slot 79 is the U slot
+    that ends hex7's four frames."""
+    for bank in banks:
+        L, U = bank._cn.shape[0], bank.n_ues
+        bank.release()
+        h = bank.h(slot)
+        assert h.shape == (bank.n_cells, U, 14, bank._n_sc, *bank._shape)
+        assert _rel_err(h.reshape(L, *h.shape[2:]), _host_phase_form(bank, slot, slice(None))) <= 1e-6
+        for s in range(bank.n_cells):
+            rows = slice(s * U, (s + 1) * U)
+            row = bank.h_row(slot, s)
+            assert _rel_err(row, _host_phase_form(bank, slot, rows)) <= 1e-6
+            assert torch.equal(row, h[s])  # the same phases and products, row by row
+        bank.release()
+
+
+def test_response_makes_no_tensor_of_numpy(banks, monkeypatch):
+    """A slot response, whole or a row, converts no NumPy array to a tensor
+    and calls no NumPy exp: its time phases come from the device tables."""
+    bank = banks[1]
+    bank.release()
+    made = []
+    for name in ("as_tensor", "from_numpy", "tensor"):
+        def spy(*args, _orig=getattr(torch, name), _name=name, **kwargs):
+            if any(isinstance(a, np.ndarray) for a in args):
+                made.append(_name)
+            return _orig(*args, **kwargs)
+        monkeypatch.setattr(torch, name, spy)
+    np_exp = np.exp
+    monkeypatch.setattr(np, "exp", lambda *a, **k: made.append("np.exp") or np_exp(*a, **k))
+    bank.h(4)
+    bank.h_row(4, 2)
+    monkeypatch.undo()
+    bank.release()
+    assert made == []
+    assert bank._nu.dtype == bank._sym_t.dtype == torch.float64
+    assert bank._nu.device == bank._sym_t.device == bank.dev
+
+
+def test_time_phases_counted_once_per_response(banks, clean, monkeypatch):
+    """One rays.device_time_phases count a response: L x 14 x N*J for h, U x
+    14 x N*J for a row, none for a cached h; outside the network.bank_h span."""
+    bank = banks[2]
+    bank.release()
+    L, N, J, _ = bank._cn.shape
+    calls = []
+    count = tracing.count
+
+    def spy(name, n=1):
+        if name == "rays.device_time_phases":
+            calls.append(n)
+        count(name, n)
+
+    monkeypatch.setattr(tracing, "count", spy)
+    tracing.enable()
+    with tracing.span("probe.h"):
+        bank.h(3)
+        bank.h(3)
+    with tracing.span("probe.row"):
+        bank.h_row(3, 0)
+    tracing.disable()
+    bank.release()
+    assert calls == [L * 14 * N * J, bank.n_ues * 14 * N * J]
+    recs = tracing.records()
+    counted = {r.name: r.counts.get("rays.device_time_phases") for r in recs if "probe" in r.name}
+    assert counted == {"probe.h": calls[0], "probe.row": calls[1]}
+    bank_h = [r for r in recs if r.name == "network.bank_h"]
+    assert len(bank_h) == 2 and not any(r.counts for r in bank_h)
 
 
 @pytest.mark.card

@@ -20,7 +20,10 @@ cluster form (sim/network.py `_RayBank`, ops/cdl.py `delay_clusters`).
   ``network.bank_bytes`` count of each slot is the banks' reckoned bytes;
 - (e) the runner's `bank_bytes` is the reckoned bytes of (b)'s banks: their
   constants after the build, one destination's slot response more after a
-  DL cross term, and no more once the uplink has read its rows.
+  DL cross term, and no more once the uplink has read its rows;
+- (f) a 19-cell bank's whole response at a DL slot and its rows at a U slot
+  equal the same fold and contraction of the host's float64 time phases
+  (the bank builds them on its device, ops/cdl.py `time_phases_on`).
 """
 
 import copy
@@ -43,6 +46,7 @@ from isac_tpu_torch.ops.cdl import (
 )
 from isac_tpu_torch.utils import tracing
 from isacbench.reference import channel
+from test_torch_cdl_device import _host_phase_form, _rel_err
 from test_torch_cell import RDM_TOL
 
 torch.set_num_threads(2)
@@ -91,10 +95,12 @@ def runner(layout):
 
 
 def static_bytes(n_sc: int, cross: dict) -> int:
-    """Every bank's constants: phases per delay and coefficients by delay."""
+    """Every bank's constants: phases per delay, coefficients and Dopplers
+    (float64) by delay, and the 14 symbol times (float64)."""
     rays = [21 if any(cross[(d, s)].any() for s in range(CELLS) if s != d) else 20
             for d in range(CELLS)]
-    return sum(CELLS * UES * (n_sc * DELAYS * 8 + DELAYS * j * PORTS * 8) for j in rays)
+    return sum(CELLS * UES * (n_sc * DELAYS * 8 + DELAYS * j * PORTS * 8 + DELAYS * j * 8)
+               + 14 * 8 for j in rays)
 
 
 def response_bytes(n_sc: int) -> int:
@@ -135,11 +141,14 @@ def test_clusters_are_exact(profile, n_delays):
 def test_bank_clusters_carry_no_padding_weight(runner):
     """(a) in the 19-cell banks: the coefficients and Dopplers laid out by
     delay are the link's own rays of that delay, in order; a padded ray
-    slot and a padded delay carry zero; the phases are those of the delays."""
+    slot and a padded delay carry zero; the phases are those of the delays.
+    The Dopplers are the bank's device table (float64)."""
     rn, links = runner
     for d in (0, 18):
         bank = rn.banks[d]
         L, N, J, A = bank._cn.shape
+        assert bank._nu.dtype == torch.float64 and bank._nu.shape == (L, N * J)
+        nu = bank._nu.cpu().numpy()
         assert (L, N, A) == (CELLS * UES, DELAYS, PORTS) and J in (20, 21)
         taus = [link.tau for link in links[d]]
         delays, _ = delay_clusters(taus)
@@ -153,15 +162,15 @@ def test_bank_clusters_carry_no_padding_weight(runner):
                 k = len(rays)
                 assert torch.equal(bank._cn[l, n, :k], torch.as_tensor(coeff[rays]))
                 assert not bank._cn[l, n, k:].any()
-                np.testing.assert_array_equal(bank._nu[l, n * J:n * J + k], link.nu[rays])
-                assert (bank._nu[l, n * J + k:(n + 1) * J] == 0).all()
+                np.testing.assert_array_equal(nu[l, n * J:n * J + k], link.nu[rays])
+                assert (nu[l, n * J + k:(n + 1) * J] == 0).all()
 
 
 def _ray_form_error(bank, links, slot, freqs, f32_phase=False) -> float:
     """The largest over links of max |dH| / max |H| between the bank's
     response and the float64 ray form; with f32_phase, of the ray form whose
     frequency phases are rounded to complex64 from a float32 angle."""
-    t = slot * bank._slot_dur + bank._sym_t
+    t = slot * bank._slot_dur + bank._sym_t.cpu().numpy()
     want = channel.slot_response(links, t, freqs, "cpu")
     if f32_phase:
         got = []
@@ -225,6 +234,19 @@ def test_bank_bytes_reckoned(runner, layout):
     # the uplink's rows are not kept
     assert rn.banks[4].h_row(0, 3).shape == (UES, 14, k, 2, 16)
     assert sum(b.nbytes() for b in rn.banks) == static
+
+
+def test_bank_matches_host_phases(runner):
+    """(f) destination 18: h at DL slot 5, and every fourth source row at U
+    slot 9, within 1e-6 of each link's largest |H|."""
+    rn, _ = runner
+    bank = rn.banks[18]
+    want = _host_phase_form(bank, 5, slice(None))
+    assert _rel_err(bank.h(5).reshape(want.shape), want) <= 1e-6
+    bank.release()
+    for s in range(0, CELLS, 4):
+        rows = slice(s * UES, (s + 1) * UES)
+        assert _rel_err(bank.h_row(9, s), _host_phase_form(bank, 9, rows)) <= 1e-6
 
 
 def test_banks_equal_jax():
