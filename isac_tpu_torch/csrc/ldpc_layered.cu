@@ -57,8 +57,8 @@
 // FMA. NaN LLRs are not supported (the reference gives NaN posteriors too).
 //
 // Left for later: what remains is the row step itself, about 0.63 us at BG1
-// Z=384 (one sweep of 46 rows in 0.029 ms, NVIDIA H100 80GB HBM3 at 700 W,
-// compare_v1_kernel.py); ROADMAP.md, Queue 2, says what was tried on it.
+// Z=384 (one sweep of 46 rows in 0.029 ms, NVIDIA H100 80GB HBM3 at 700 W);
+// ROADMAP.md, Queue 2, says what was tried on it.
 // Neither unrolling the rows per base graph (no dispatch on the degree at
 // all) nor fetching the state with cp.async shortened it.
 

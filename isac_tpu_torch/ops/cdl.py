@@ -3,10 +3,15 @@ counterpart of isac_tpu/ops/cdl.py).
 
 Ray phases and coupling are drawn once per link from a seed with numpy, in
 the reference's exact RNG call order, so the same seed gives the same
-CDLLink arrays. The single-link frequency response is here; a batch of links
-goes through isac_tpu_torch/parallel/links.py. The engines' and the banks'
-ray frequency phases are built on their device by freq_phases_on, the banks'
-slow-time phases by time_phases_on.
+CDLLink arrays. Every frequency response of the port is made here, in one
+form: a batch of links in the cluster form (BatchedLinks, stack_links), the
+phases of its delays and of its Dopplers built on its device from float64
+(freq_phases_on, time_phases_on) and one fold and batched product
+(cluster_response). SlotChannel keeps a batch's constants and its current
+slot's response; the engines (sim/cell.py) and the network banks
+(sim/network.py) hold one each, batched_frequency_response and
+cdl_frequency_response compute it at given times. freq_phases and
+time_phases, the host's float64 phases, are the tests' reference.
 """
 
 from __future__ import annotations
@@ -385,23 +390,145 @@ def time_phases_on(nu: torch.Tensor, t_syms: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@dataclass(frozen=True, eq=False)
+class BatchedLinks:
+    """L CDL links on one device in the cluster form.
+
+    The rays of a cluster share its delay (build_cdl_link), so
+    H_l[t, f] = sum_n exp(-2j pi f delays_ln) g_ln(t), with
+    g_ln(t) = sum over the rays r of delay n of c_lr exp(2j pi nu_lr t).
+    The distinct delays stay float64 on the host (their phases are built on
+    the device by freq_phases_on); the ray coefficients are laid out by delay
+    with J the most rays a delay has, zero where a delay has fewer, and the
+    Dopplers alike, float64 on the device (zero where the coefficients are)."""
+
+    delays: np.ndarray  # [L, N] float64 (delay_clusters)
+    coeff: torch.Tensor  # [L, N, J, rx*tx] complex64
+    nu: torch.Tensor  # [L, N*J] float64
+    n_rays: int  # the most rays a link has
+    ports: tuple  # (rx, tx)
+
+
+def _cluster_batch(coeffs: list, taus: list, nus: list, device) -> BatchedLinks:
+    """BatchedLinks of links given as coeff [rx, tx, R_l], tau and nu [R_l]."""
+    dev = resolve_device(device)
+    n_rx, n_tx = coeffs[0].shape[:2]
+    delays, index = delay_clusters(taus)
+    L, N = delays.shape
+    J = max(int(np.bincount(ix[ix >= 0], minlength=1).max()) for ix in index)
+    cn = np.zeros((L, N, J, n_rx * n_tx), np.complex64)
+    nu = np.zeros((L, N, J))
+    for l, ix in enumerate(index):
+        rays = np.argsort(ix[ix >= 0], kind="stable")  # by delay, in build order within
+        n = ix[rays]
+        j = np.arange(n.size) - np.searchsorted(n, n)
+        cn[l, n, j] = np.asarray(coeffs[l]).reshape(n_rx * n_tx, -1).T[rays]
+        nu[l, n, j] = nus[l][rays]
+    return BatchedLinks(delays=delays, coeff=torch.as_tensor(cn, device=dev),
+                        nu=torch.as_tensor(nu.reshape(L, N * J), device=dev),
+                        n_rays=max(t.size for t in taus), ports=(n_rx, n_tx))
+
+
+def links_from_numpy(coeff: np.ndarray, tau: np.ndarray, nu: np.ndarray,
+                     device=None) -> BatchedLinks:
+    """BatchedLinks from host arrays zero-padded to a common ray count, coeff
+    [L, rx, tx, R], tau and nu [L, R] (e.g. the reference's BatchedLinks): a
+    ray whose coefficients are all zero, as a padded ray's are, is left out."""
+    coeff = np.asarray(coeff, np.complex64)
+    keep = np.any(coeff != 0, axis=(1, 2))  # [L, R]
+    tau, nu = np.asarray(tau, np.float64), np.asarray(nu, np.float64)
+    return _cluster_batch([c[..., k] for c, k in zip(coeff, keep)],
+                          [t[k] for t, k in zip(tau, keep)], [v[k] for v, k in zip(nu, keep)],
+                          device)
+
+
+def stack_links(links: list[CDLLink], device=None) -> BatchedLinks:
+    """The links as one batch (profiles differ in cluster and ray count:
+    CDL-A 23 delays of 460 rays, CDL-D 13 of 261)."""
+    return _cluster_batch([l.coeff for l in links], [l.tau for l in links],
+                          [l.nu for l in links], device)
+
+
+def cluster_response(bl: BatchedLinks, ffc: torch.Tensor, ft: torch.Tensor,
+                     links=slice(None)) -> torch.Tensor:
+    """[L', S, K, rx, tx] of the links `links` of bl, from the frequency
+    phases of its delays ffc [L, K, N] (freq_phases_on of bl.delays) and the
+    time phases ft [L', S, N*J] (time_phases_on of bl.nu[links]): the time
+    phases folded into the coefficients delay by delay,
+    g[l, n, s, a] = sum_j ft[l, s, (n, j)] c[l, n, j, a], then one batched
+    matrix product over the delays; no [L, S, K, R] phase tensor is formed.
+    The result is a strided view of one [L', K, S * rx * tx] product."""
+    ffc, cn = ffc[links], bl.coeff[links]
+    L, N, J, A = cn.shape
+    S = ft.shape[-2]
+    g = torch.matmul(ft.view(L, S, N, J).transpose(1, 2), cn)  # [L', N, S, A]
+    h = torch.matmul(ffc, g.view(L, N, S * A))  # [L', K, S * A]
+    return h.view(L, ffc.shape[1], S, *bl.ports).transpose(1, 2)
+
+
+def batched_frequency_response(
+    bl: BatchedLinks, t_syms: np.ndarray, freqs: np.ndarray, scale: float = 1.0
+) -> torch.Tensor:
+    """H[L, S, K, rx, tx] of every link at symbol times t_syms [S] (s) and
+    subcarrier frequencies freqs [K] (Hz, baseband offsets from fc), times
+    scale: the phases built on bl's device from float64 (freq_phases_on,
+    time_phases_on), then cluster_response. H agrees with the reference's
+    ray contraction to a stated tolerance, not bit for bit."""
+    dev = bl.coeff.device
+    ffc = freq_phases_on(bl.delays, freqs, dev)
+    ft = time_phases_on(bl.nu, torch.as_tensor(np.asarray(t_syms, np.float64), device=dev))
+    return cluster_response(bl, ffc, ft) * scale
+
+
 def cdl_frequency_response(link: CDLLink, t_syms: np.ndarray, freqs: np.ndarray,
                            device=None) -> torch.Tensor:
-    """H[sym, sc, rx, tx] at symbol times t_syms [S] (s) and subcarrier
-    frequencies freqs [K] (Hz, baseband offsets from fc): a matrix product
-    over rays, [S*K, R] phases x [R, rx*tx] coefficients.
+    """H[sym, sc, rx, tx] of one link (batched_frequency_response).
 
     device: None means the card (raises without one)."""
-    dev = resolve_device(device)
-    n_rx, n_tx, n_rays = link.coeff.shape
-    tt = np.asarray(t_syms, np.float64)
-    ft = torch.as_tensor(time_phases(link.nu, tt), device=dev)
-    ff = torch.as_tensor(freq_phases(link.tau, np.asarray(freqs)), device=dev)
-    c2 = torch.as_tensor(np.ascontiguousarray(link.coeff.reshape(n_rx * n_tx, n_rays).T),
-                         device=dev)  # [R, rx*tx]
-    ph = ft[:, None, :] * ff[None, :, :]
-    h = torch.matmul(ph.reshape(-1, n_rays), c2)
-    return h.reshape(len(tt), len(freqs), n_rx, n_tx)
+    return batched_frequency_response(stack_links([link], device), t_syms, freqs)[0]
+
+
+class SlotChannel:
+    """The responses of a batch of links over one carrier's subcarriers, a
+    slot at a time, on the batch's device.
+
+    The frequency phases of the delays are built once (freq_phases_on) and
+    kept with the symbol times of a slot (float64). response(slot, links)
+    builds the slot's time phases there (time_phases_on) and contracts them
+    (`_contract`, cluster_response): nothing is uploaded. h(slot) is the
+    whole response, kept until the next slot's call or release()."""
+
+    def __init__(self, bl: BatchedLinks, freqs: np.ndarray, sym_t: np.ndarray, slot_s: float):
+        self.links = bl
+        self.dev = bl.coeff.device
+        self.ffc = freq_phases_on(bl.delays, freqs, self.dev)  # [L, K, N]
+        self.sym_t = torch.as_tensor(sym_t, device=self.dev)  # [14] float64
+        self.slot_s = slot_s
+        self._held: dict = {}
+
+    def h(self, slot: int) -> torch.Tensor:
+        """[L, 14, K, rx, tx] at the slot, kept for that slot."""
+        if slot not in self._held:
+            self._held.clear()
+            self._held[slot] = self.response(slot)
+        return self._held[slot]
+
+    def response(self, slot: int, links=slice(None)) -> torch.Tensor:
+        """[L', 14, K, rx, tx] of the links `links` at the slot, not kept."""
+        ft = time_phases_on(self.links.nu[links], self.sym_t + slot * self.slot_s)
+        return self._contract(ft, links)
+
+    def _contract(self, ft: torch.Tensor, links) -> torch.Tensor:
+        return cluster_response(self.links, self.ffc, ft, links)
+
+    def release(self):
+        """Drop the kept response."""
+        self._held.clear()
+
+    def nbytes(self) -> int:
+        """Bytes held on the device: constants and the kept response."""
+        held = [self.ffc, self.links.coeff, self.links.nu, self.sym_t, *self._held.values()]
+        return sum(t.numel() * t.element_size() for t in held)
 
 
 def apply_channel_freq(grid: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

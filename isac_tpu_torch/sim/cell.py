@@ -18,10 +18,13 @@ budget), as in the reference. What differs in form:
 - Every random draw is the reference's: the key of (seed, slot, salt) comes
   from numpy's SeedSequence on the host and `utils/prng.py` draws the same
   threefry normals as `jax.random` (bits exact, normals within ~2 ulps).
-- The channel is the reference's host-phase path: float64 slow-time phases on
-  the host, one complex64 upload and one ray contraction per slot and
-  direction, cached for 4 slots. The frequency phases are built once, on the
-  device, in float64 (ops/cdl.py `freq_phases_on`).
+- The channel of each direction is one batch of links in the cluster form
+  (ops/cdl.py `SlotChannel`, as the network banks'): the frequency phases of
+  the delays are built once on the device, each slot's time phases there
+  too, both from float64, and one fold and batched product per slot and
+  direction gives every UE's H, kept for the current slot. The reference's
+  host float64 phases and ray contraction give the same H to float32
+  summation order.
 - The slot is split into phases (`_slot_begin`, `_dl_tx_phase`,
   `_dl_rx_phase(ext=)`, `_ul_tx_phase`, `_ul_rx_phase(ext=)`,
   `_slot_epilogue`) so that sim/network.py can run co-channel cells in
@@ -36,8 +39,8 @@ budget), as in the reference. What differs in form:
   (parallel/time_blocks.py).
 
 Spans (utils/tracing.py): ``build.engine`` around the constructor (with
-``build.engine.links``, the CDL draws, and ``build.engine.rays``, the stacked
-ray constants, their upload and the device frequency phases), ``cell.slot``
+``build.engine.links``, the CDL draws, and ``build.engine.rays``, the links in
+the cluster form, their upload and the device frequency phases), ``cell.slot``
 around each slot of the slot loop, and inside it a span ``cell.<stage>`` for
 every stage (tick, plan, dl_tx, dl_rx, ul_tx, ul_rx, csi, srs, due_readback;
 segment around a block-mode segment's device work); ``cell.finalize`` (flush
@@ -62,7 +65,7 @@ from isac_tpu_torch.mac.pdu import build_mac_pdu, parse_mac_pdu
 from isac_tpu_torch.mac.scheduler import Grant, Scheduler
 from isac_tpu_torch.metrics.kpi import CellMetrics, peak_spectral_efficiency
 from isac_tpu_torch.metrics.logger import MacPcapWriter, SchedulingLogger
-from isac_tpu_torch.ops.cdl import build_cdl_link, freq_phases_on, subcarrier_freqs, time_phases
+from isac_tpu_torch.ops.cdl import SlotChannel, build_cdl_link, stack_links, subcarrier_freqs
 from isac_tpu_torch.ops.csi import (
     SINR_TO_CQI_UL,
     cqi_select,
@@ -86,7 +89,6 @@ from isac_tpu_torch.ops.precoding import (
 )
 from isac_tpu_torch.ops.sensing import get_rmse
 from isac_tpu_torch.ops.srs import srs_estimate_ports, srs_fill_grid
-from isac_tpu_torch.parallel.links import stack_links
 from isac_tpu_torch.phy.chains import (
     SCHGrant,
     grant_tbs,
@@ -295,21 +297,14 @@ class CellSimulator:
             self._sym_t = (
                 self.info.symbol_starts(1, 0).astype(np.float64) / self.info.sample_rate
             )  # intra-slot symbol times [14]
-            # stacked ray constants, on the device once (the frequency phases
-            # built there from float64 tau): one contraction per slot and
-            # direction gives every UE's H
-            self._h_cache: dict = {}
-            self._bl = {}
+            # each direction's links in the cluster form on the device, their
+            # frequency phases built there once (ops/cdl.py SlotChannel)
             with tracing.span("build.engine.rays"):
-                for d, links in (("DL", self.links_dl), ("UL", self.links_ul)):
-                    bl = stack_links(links, device=self.dev)
-                    L, n_rx, n_tx2, R = bl.coeff.shape
-                    self._bl[d] = {
-                        "ff": freq_phases_on(bl.tau, self.freqs, self.dev),  # [L, K, R]
-                        "c2": bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx2),
-                        "nu": bl.nu,
-                        "shape": (n_rx, n_tx2),
-                    }
+                self._channel = {
+                    d: SlotChannel(stack_links(links, device=self.dev), self.freqs, self._sym_t,
+                                   self.carrier.slot_duration_s)
+                    for d, links in (("DL", self.links_dl), ("UL", self.links_ul))
+                }
 
             # ---------------- protocol state --------------------------------------
             sch = cell.scheduling
@@ -430,21 +425,9 @@ class CellSimulator:
     # ------------------------------------------------------------- channel ops
 
     def _h_slot(self, slot: int, direction: str) -> torch.Tensor:
-        """All-UE channel for one slot, [L, 14, n_sc, n_rx, n_tx] (cached)."""
-        key = (slot, direction)
-        if key not in self._h_cache:
-            if len(self._h_cache) > 4:
-                self._h_cache.clear()
-            b = self._bl[direction]
-            n_rx, n_tx = b["shape"]
-            t = slot * self.carrier.slot_duration_s + self._sym_t
-            ft = torch.as_tensor(time_phases(b["nu"], t), device=self.dev)  # [L, 14, R]
-            ff, c2 = b["ff"], b["c2"]
-            L, R = ft.shape[0], ft.shape[-1]
-            ph = ft[:, :, None, :] * ff[:, None, :, :]  # [L, 14, K, R]
-            h = torch.matmul(ph.reshape(L, -1, R), c2)  # [L, 14*K, rx*tx]
-            self._h_cache[key] = h.reshape(L, 14, self.n_sc, n_rx, n_tx)
-        return self._h_cache[key]
+        """All-UE channel for one slot, [L, 14, n_sc, n_rx, n_tx], kept for
+        the current slot of each direction."""
+        return self._channel[direction].h(slot)
 
     def _to_dev(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.dev)

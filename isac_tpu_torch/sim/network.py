@@ -21,12 +21,13 @@ off-channel rows carry amplitude 0, the host float64 amplitudes and
 pathlosses, and the due slots of every cell's results. What differs in form:
 
 - The slot response of a bank is contracted per cluster delay, not per
-  ray (`_RayBank`): the frequency phases of each link's distinct delays are
-  built once on the device in float64 (ops/cdl.py `freq_phases_on`); each
+  ray, in the channel layer's one form (`_RayBank` is an ops/cdl.py
+  `SlotChannel`, as each engine's channel is): the frequency phases of each
+  link's distinct delays are built once on the device in float64; each
   slot the slow-time phases, formed on the device in float64 from the
-  Dopplers and symbol times kept there (ops/cdl.py `time_phases_on`), are
-  folded into the ray coefficients delay by delay, and one batched matrix
-  product over the delays gives the response. A destination's DL cross term
+  Dopplers and symbol times kept there, are folded into the ray
+  coefficients delay by delay, and one batched matrix product over the
+  delays gives the response. A destination's DL cross term
   holds its bank's response for the slot only; the TDD uplink asks each bank
   for the one row it reads (`h_row`). The TPU device-phase branch
   (`_dev_path`), which forms those phases from float32 angles, is not
@@ -68,10 +69,9 @@ import torch
 
 from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
 from isac_tpu_torch.metrics.kpi import ecdf
-from isac_tpu_torch.ops.cdl import build_cdl_link, delay_clusters, freq_phases_on, time_phases_on
+from isac_tpu_torch.ops.cdl import SlotChannel, build_cdl_link, stack_links
 from isac_tpu_torch.ops.pathloss import pathloss as pathloss_db
 from isac_tpu_torch.parallel.cells import network_cross_rx
-from isac_tpu_torch.parallel.links import stack_links
 from isac_tpu_torch.sim.cell import CellSimulator, _readback
 from isac_tpu_torch.topology.osm import build_city
 from isac_tpu_torch.utils import tracing
@@ -128,95 +128,36 @@ def resolve_los_cross(cells: list, sim: SimulationParameters):
         return out, cross_los
 
 
-class _RayBank:
-    """Every (source, UE) link of a destination as one batched channel in the
-    cluster form, its constants on the destination engine's device.
+class _RayBank(SlotChannel):
+    """Every (source, UE) link of a destination as one batch of links in the
+    cluster form (ops/cdl.py SlotChannel), on the destination engine's device
+    and subcarriers.
 
-    The rays of a CDL cluster share its delay (ops/cdl.py build_cdl_link), so
-    a link's response is a sum over its N distinct delays, not its R rays:
-    H[l, s, k, a] = sum_n ffc[l, k, n] g[l, n, s, a], with
-    g[l, n, s, a] = sum over the rays r of delay n of ft[l, s, r] c[l, r, a].
-    The bank keeps the frequency phases per delay ffc [L, K, N] (float64
-    angles on the device, freq_phases_on) and the ray coefficients laid out
-    by delay, [L, N, J, rx*tx] with J the most rays a delay has (zero where a
-    delay has fewer) and the Dopplers in the same layout (float64, zero
-    where the coefficients are), with the symbol times. A slot response
-    builds the slot's time phases there (time_phases_on) and folds them into
-    the coefficients, one [14, J] x [J, rx*tx] product a delay, then
-    contracts ffc with g in one batched matrix product: no [L, 14, K, R]
-    phase tensor is formed and nothing is uploaded.
-
-    h(slot) is the whole response, cached for that slot until release();
-    h_row(slot, s) is source row s alone, computed on its own."""
+    h(slot) is the whole response as [S, U, 14, K, rx, tx], kept for that
+    slot until release(); h_row(slot, s) is source row s alone, computed on
+    its own. The fold and the contraction of a response run inside the
+    ``network.bank_h`` span, the slot's time phases just before it."""
 
     def _stack(self, links: list, dst_sim: CellSimulator):
-        dev = dst_sim.dev
-        bl = stack_links(links, device=dev)
-        L, n_rx, n_tx, R = bl.coeff.shape
-        delays, index = delay_clusters([l.tau for l in links])
-        N = delays.shape[1]
-        # slots[l, n, j]: the j-th ray of delay n of link l, or R (a zero ray)
-        J = max(int(np.bincount(ix[ix >= 0]).max()) for ix in index)
-        slots = np.full((L, N, J), R, np.int64)
-        for l, ix in enumerate(index):
-            rays = np.argsort(ix[ix >= 0], kind="stable")  # by delay, in build order within
-            n = ix[rays]
-            slots[l, n, np.arange(n.size) - np.searchsorted(n, n)] = rays
-        c = torch.cat([bl.coeff.permute(0, 3, 1, 2).reshape(L, R, n_rx * n_tx),
-                       bl.coeff.new_zeros((L, 1, n_rx * n_tx))], dim=1)
-        self.dev = dev
-        self._ffc = freq_phases_on(delays, dst_sim.freqs, dev)  # [L, K, N]
-        self._cn = c[torch.arange(L, device=dev)[:, None],
-                     torch.as_tensor(slots.reshape(L, N * J), device=dev)].view(
-                         L, N, J, n_rx * n_tx)  # [L, N, J, rx*tx]
-        self._nu = torch.as_tensor(np.take_along_axis(np.pad(bl.nu, ((0, 0), (0, 1))),
-                                                      slots.reshape(L, N * J), axis=1),
-                                   device=dev)  # [L, N*J] float64
-        self._n_rays = R
-        self._shape = (n_rx, n_tx)
-        self._sym_t = torch.as_tensor(dst_sim._sym_t, device=dev)  # [14] float64
-        self._slot_dur = dst_sim.carrier.slot_duration_s
-        self._n_sc = dst_sim.n_sc
-        self._h_cache: dict = {}
+        super().__init__(stack_links(links, device=dst_sim.dev), dst_sim.freqs, dst_sim._sym_t,
+                         dst_sim.carrier.slot_duration_s)
 
     def h(self, slot: int) -> torch.Tensor:
-        """[S, U, 14, K, rx, tx] for one slot, cached until release() or the
-        next slot's call (the DL cross term and the capture share it)."""
-        if slot not in self._h_cache:
-            self._h_cache.clear()
-            n_rx, n_tx = self._shape
-            self._h_cache[slot] = self._response(slot, slice(None)).reshape(
-                self.n_cells, self.n_ues, 14, self._n_sc, n_rx, n_tx)
-        return self._h_cache[slot]
+        """[S, U, 14, K, rx, tx] for one slot (the DL cross term and the
+        capture share it)."""
+        h = super().h(slot)
+        return h.reshape(self.n_cells, self.n_ues, *h.shape[1:])
 
     def h_row(self, slot: int, s: int) -> torch.Tensor:
         """h(slot)[s], [U, 14, K, rx, tx], computed alone and not kept (the
         TDD uplink reads one row of every other cell's bank)."""
-        return self._response(slot, slice(s * self.n_ues, (s + 1) * self.n_ues))
+        return self.response(slot, slice(s * self.n_ues, (s + 1) * self.n_ues))
 
-    def release(self):
-        """Drop the cached slot response."""
-        self._h_cache.clear()
-
-    def nbytes(self) -> int:
-        """Bytes the bank holds on its device: constants and cached response."""
-        held = [self._ffc, self._cn, self._nu, self._sym_t, *self._h_cache.values()]
-        return sum(t.numel() * t.element_size() for t in held)
-
-    def _response(self, slot: int, links: slice) -> torch.Tensor:
-        """[L', 14, K, rx, tx] of the bank's links `links` (a strided view of
-        one [L', K, 14 * rx * tx] product)."""
-        n_rx, n_tx = self._shape
-        ft = time_phases_on(self._nu[links], self._sym_t + slot * self._slot_dur)  # [L', 14, N*J]
-        ffc, cn = self._ffc[links], self._cn[links]
-        L, N, J, A = cn.shape
-        K = ffc.shape[1]
-        with tracing.span("network.bank_h", device=True, links=L, subcarriers=K, delays=N,
-                          rays=self._n_rays, ports=A):
-            # g[l, n, s, a] = sum over the rays j of delay n of ft[l, s, (n, j)] c[l, n, j, a]
-            g = torch.matmul(ft.view(L, 14, N, J).transpose(1, 2), cn)  # [L', N, 14, A]
-            h = torch.matmul(ffc, g.view(L, N, 14 * A))  # [L', K, 14 * A]
-        return h.view(L, K, 14, n_rx, n_tx).transpose(1, 2)
+    def _contract(self, ft: torch.Tensor, links) -> torch.Tensor:
+        L, N, J, A = self.links.coeff[links].shape
+        with tracing.span("network.bank_h", device=True, links=L, subcarriers=self.ffc.shape[1],
+                          delays=N, rays=self.links.n_rays, ports=A):
+            return super()._contract(ft, links)
 
 
 class _UlCrossBank(_RayBank):

@@ -1,6 +1,7 @@
 """The CDL ray frequency phases built on the device (ops/cdl.py
-`freq_phases_on`) against the host's float64 `freq_phases`, and the slow-time
-phases (`time_phases_on`) against the host's `time_phases`.
+`freq_phases_on`) against the host's float64 `freq_phases`, the slow-time
+phases (`time_phases_on`) against the host's `time_phases`, and the one slot
+response built from them (ops/cdl.py `SlotChannel`, `cluster_response`).
 
 On the CPU: CDL-A and CDL-D delays at 300 ns with padded zero-delay rays over
 a slice of the full carrier's subcarriers; block sizes that do not divide
@@ -10,7 +11,10 @@ time phases of CDL-A and CDL-D Dopplers at 30 m/s padded with zero rays to a
 bank's width, at slot 0 and at the last slot of a 200-frame timeline; a
 3-cell network's bank responses (`h`, `h_row`) against the same fold and
 contraction of host phases, with no NumPy array made a tensor during a
-response and one ``rays.device_time_phases`` count per response.
+response and one ``rays.device_time_phases`` count per response, the
+engines' and the banks'; an engine's DL and UL responses and the one-link
+`cdl_frequency_response` against the float64 ray form of the benchmark's
+plain reference (isacbench/reference/channel.py), within BANK_TOL.
 
 On the card (marker ``card``; this file imports no JAX, so run it there with
 ``python -m pytest --noconftest tests/test_torch_cdl_device.py -m card -s``):
@@ -24,14 +28,18 @@ import torch
 from isac_tpu_torch.config.carrier import ofdm_info
 from isac_tpu_torch.ops import cdl
 from isac_tpu_torch.ops.cdl import (
+    batched_frequency_response,
     build_cdl_link,
+    cdl_frequency_response,
     freq_phases,
     freq_phases_on,
+    stack_links,
     subcarrier_freqs,
     time_phases,
     time_phases_on,
 )
 from isac_tpu_torch.utils import tracing
+from isacbench.reference import channel
 
 CPU = dict(n_rb_override=12, nfft_override=256, device="cpu")
 FULL_FREQS = subcarrier_freqs(3276, 30e3)
@@ -39,6 +47,10 @@ F32_EPS = 2.0 ** -23
 _INFO = ofdm_info(273, 30)
 SYM_T = _INFO.symbol_starts(1, 0).astype(np.float64) / _INFO.sample_rate  # [14] s
 SLOT_S = 0.5e-3
+# a slot response against the float64 ray form: max |dH| / max |H| of each
+# link (tests/test_torch_network_hex19.py: a float32 frequency phase at the
+# full carrier's band edges reads ~1.1e-5, the device's float64 one <= 6e-7)
+BANK_TOL = 3e-6
 
 
 @pytest.fixture
@@ -104,9 +116,10 @@ def test_blocks_that_do_not_divide(n_links, sc):
 
 
 def test_engine_and_banks_build_on_device(clean, monkeypatch):
-    """Every ff of an engine and of a 3-cell network's banks is built by
+    """Every frequency phase table of an engine and of a 3-cell network's
+    banks (L x K x N, one phase a link, subcarrier and delay) is built by
     freq_phases_on, lies within one float32 ulp of the host's phases of the
-    same links, and is counted as rays.device_phases."""
+    same delays, and is counted as rays.device_phases."""
     from isac_tpu_torch.config import params, scenarios
     from isac_tpu_torch.sim import cell as cell_mod
     from isac_tpu_torch.sim import network as net_mod
@@ -119,8 +132,7 @@ def test_engine_and_banks_build_on_device(clean, monkeypatch):
         built.append((np.array(tau), np.array(freqs), out))
         return out
 
-    monkeypatch.setattr(cell_mod, "freq_phases_on", spy)
-    monkeypatch.setattr(net_mod, "freq_phases_on", spy)
+    monkeypatch.setattr(cdl, "freq_phases_on", spy)
 
     sim = scenarios.multi_cell(params.SimulationParameters(), num_cells=3)
     sim.validate()
@@ -131,8 +143,8 @@ def test_engine_and_banks_build_on_device(clean, monkeypatch):
     runner._build_banks()
     tracing.disable()
 
-    ffs = [s._bl[d]["ff"] for s in [engine, *runner.sims] for d in ("DL", "UL")]
-    ffs += [b._ffc for b in runner.banks]
+    ffs = [s._channel[d].ffc for s in [engine, *runner.sims] for d in ("DL", "UL")]
+    ffs += [b.ffc for b in runner.banks]
     assert len(ffs) == len(built) == 2 * 4 + 3
     assert [id(ff) for ff in ffs] == [id(out) for _, _, out in built]
     for tau, freqs, out in built:
@@ -164,8 +176,9 @@ def test_time_phases_match_host(clean, profile, slot):
 
 
 @pytest.fixture(scope="module")
-def banks():
-    """The banks of a 3-cell network at 12 PRB (TDD DDDSU: slot 4 is U)."""
+def network():
+    """A 3-cell network at 12 PRB with its banks built (TDD DDDSU: slot 4
+    is U)."""
     from isac_tpu_torch.config import params, scenarios
     from isac_tpu_torch.sim import network as net_mod
 
@@ -175,16 +188,22 @@ def banks():
     runner = net_mod.SyncNetworkRunner(params.assign_cell_parameters(sim), seed=6,
                                        enable_sensing=False, **CPU)
     runner._build_banks()
-    return runner.banks
+    return runner
+
+
+@pytest.fixture(scope="module")
+def banks(network):
+    return network.banks
 
 
 def _host_phase_form(bank, slot: int, links: slice) -> torch.Tensor:
-    """The bank's fold and contraction with the time phases of the host's
-    time_phases, uploaded as they were before the bank built them."""
-    n_rx, n_tx = bank._shape
-    t = slot * bank._slot_dur + bank._sym_t.cpu().numpy()
-    ft = torch.as_tensor(time_phases(bank._nu[links].cpu().numpy(), t), device=bank.dev)
-    ffc, cn = bank._ffc[links], bank._cn[links]
+    """A bank's (a SlotChannel's) fold and contraction with the time phases
+    of the host's time_phases, uploaded as they were before the bank built
+    them."""
+    n_rx, n_tx = bank.links.ports
+    t = slot * bank.slot_s + bank.sym_t.cpu().numpy()
+    ft = torch.as_tensor(time_phases(bank.links.nu[links].cpu().numpy(), t), device=bank.dev)
+    ffc, cn = bank.ffc[links], bank.links.coeff[links]
     L, N, J, A = cn.shape
     g = torch.matmul(ft.view(L, 14, N, J).transpose(1, 2), cn)
     h = torch.matmul(ffc, g.view(L, N, 14 * A))
@@ -203,10 +222,10 @@ def test_bank_responses_match_host_phases(banks, slot):
     host-phase form of the same fold and contraction; slot 79 is the U slot
     that ends hex7's four frames."""
     for bank in banks:
-        L, U = bank._cn.shape[0], bank.n_ues
+        L, U = bank.links.coeff.shape[0], bank.n_ues
         bank.release()
         h = bank.h(slot)
-        assert h.shape == (bank.n_cells, U, 14, bank._n_sc, *bank._shape)
+        assert h.shape == (bank.n_cells, U, 14, bank.ffc.shape[1], *bank.links.ports)
         assert _rel_err(h.reshape(L, *h.shape[2:]), _host_phase_form(bank, slot, slice(None))) <= 1e-6
         for s in range(bank.n_cells):
             rows = slice(s * U, (s + 1) * U)
@@ -235,16 +254,19 @@ def test_response_makes_no_tensor_of_numpy(banks, monkeypatch):
     monkeypatch.undo()
     bank.release()
     assert made == []
-    assert bank._nu.dtype == bank._sym_t.dtype == torch.float64
-    assert bank._nu.device == bank._sym_t.device == bank.dev
+    assert bank.links.nu.dtype == bank.sym_t.dtype == torch.float64
+    assert bank.links.nu.device == bank.sym_t.device == bank.dev
 
 
-def test_time_phases_counted_once_per_response(banks, clean, monkeypatch):
-    """One rays.device_time_phases count a response: L x 14 x N*J for h, U x
-    14 x N*J for a row, none for a cached h; outside the network.bank_h span."""
-    bank = banks[2]
+def test_time_phases_counted_once_per_response(network, clean, monkeypatch):
+    """One rays.device_time_phases count a response: L x 14 x N*J for a
+    bank's h and for an engine's DL and UL responses, U x 14 x N*J for a
+    bank's row, none for a kept response; none inside network.bank_h, and
+    an engine's response opens no network span."""
+    bank, engine = network.banks[2], network.sims[0]
     bank.release()
-    L, N, J, _ = bank._cn.shape
+    L, N, J, _ = bank.links.coeff.shape
+    dl, ul = (engine._channel[d].links.coeff.shape for d in ("DL", "UL"))
     calls = []
     count = tracing.count
 
@@ -260,14 +282,44 @@ def test_time_phases_counted_once_per_response(banks, clean, monkeypatch):
         bank.h(3)
     with tracing.span("probe.row"):
         bank.h_row(3, 0)
+    with tracing.span("probe.engine"):
+        for d in ("DL", "UL", "DL", "UL"):
+            engine._h_slot(7, d)
     tracing.disable()
     bank.release()
-    assert calls == [L * 14 * N * J, bank.n_ues * 14 * N * J]
+    assert calls == [L * 14 * N * J, bank.n_ues * 14 * N * J,
+                     dl[0] * 14 * dl[1] * dl[2], ul[0] * 14 * ul[1] * ul[2]]
     recs = tracing.records()
     counted = {r.name: r.counts.get("rays.device_time_phases") for r in recs if "probe" in r.name}
-    assert counted == {"probe.h": calls[0], "probe.row": calls[1]}
+    assert counted == {"probe.h": calls[0], "probe.row": calls[1],
+                       "probe.engine": calls[2] + calls[3]}
     bank_h = [r for r in recs if r.name == "network.bank_h"]
     assert len(bank_h) == 2 and not any(r.counts for r in bank_h)
+    assert {r.name for r in recs if r.name.startswith("network.")} == {"network.bank_h"}
+
+
+@pytest.mark.parametrize("case", ["engine-DL", "engine-UL", "one-link"])
+def test_responses_match_float64_ray_form(network, case):
+    """An engine's _h_slot at a DL slot and at the U slot 9, and the one-link
+    cdl_frequency_response, against the float64 ray form (BANK_TOL of each
+    link's largest |H|); the one-link response is row 0 of the batched one."""
+    engine = network.sims[1]
+    direction = case.removeprefix("engine-")
+    slot = 9 if direction == "UL" else 2
+    links = engine.links_ul if direction == "UL" else engine.links_dl
+    t = slot * engine.carrier.slot_duration_s + engine._sym_t
+    want = channel.slot_response(links, t, engine.freqs, "cpu")
+    if case == "one-link":
+        got = cdl_frequency_response(links[0], t, engine.freqs, device="cpu")[None]
+        batched = batched_frequency_response(stack_links(links, device="cpu"), t, engine.freqs)
+        assert torch.equal(got[0], batched[0])
+        want = want[:1]
+    else:
+        got = engine._h_slot(slot, direction)
+    assert got.shape == want.shape and got.shape[1:3] == (14, engine.n_sc)
+    dims = tuple(range(1, want.dim()))
+    err = (got.to(torch.complex128) - want).abs().amax(dims) / want.abs().amax(dims)
+    assert float(err.max()) <= BANK_TOL, err
 
 
 @pytest.mark.card

@@ -1,6 +1,6 @@
 """The 19-site layout (`multi_cell(19, num_ues=10)`: the centre site and two
 rings of the hexagonal grid, 10 UEs a cell) and the cross-cell banks in the
-cluster form (sim/network.py `_RayBank`, ops/cdl.py `delay_clusters`).
+cluster form (sim/network.py `_RayBank`, ops/cdl.py `SlotChannel`, `delay_clusters`).
 
 - (a) the grouping of rays by delay is exact: every ray's delay is its
   cluster's, padded rays and padded clusters carry no weight;
@@ -46,14 +46,13 @@ from isac_tpu_torch.ops.cdl import (
 )
 from isac_tpu_torch.utils import tracing
 from isacbench.reference import channel
-from test_torch_cdl_device import _host_phase_form, _rel_err
+from test_torch_cdl_device import BANK_TOL, _host_phase_form, _rel_err
 from test_torch_cell import RDM_TOL
 
 torch.set_num_threads(2)
 
 CELLS, UES = 19, 10
 TINY = dict(n_rb_override=12, nfft_override=256, enable_sensing=False, device="cpu")
-BANK_TOL = 3e-6
 # every bank holds CDL-A links (its own row is NLoS): 23 delays a link; a
 # delay takes at most 20 rays, 21 in a bank with a CDL-D link (its LoS ray
 # shares the first cluster's zero delay)
@@ -146,13 +145,13 @@ def test_bank_clusters_carry_no_padding_weight(runner):
     rn, links = runner
     for d in (0, 18):
         bank = rn.banks[d]
-        L, N, J, A = bank._cn.shape
-        assert bank._nu.dtype == torch.float64 and bank._nu.shape == (L, N * J)
-        nu = bank._nu.cpu().numpy()
+        L, N, J, A = bank.links.coeff.shape
+        assert bank.links.nu.dtype == torch.float64 and bank.links.nu.shape == (L, N * J)
+        nu = bank.links.nu.cpu().numpy()
         assert (L, N, A) == (CELLS * UES, DELAYS, PORTS) and J in (20, 21)
         taus = [link.tau for link in links[d]]
         delays, _ = delay_clusters(taus)
-        assert torch.equal(bank._ffc, freq_phases_on(delays, rn.sims[d].freqs, "cpu"))
+        assert torch.equal(bank.ffc, freq_phases_on(delays, rn.sims[d].freqs, "cpu"))
         for l, link in enumerate(links[d]):
             uniq = np.unique(link.tau)
             np.testing.assert_array_equal(delays[l, :uniq.size], uniq)
@@ -160,8 +159,8 @@ def test_bank_clusters_carry_no_padding_weight(runner):
             for n in range(N):
                 rays = np.flatnonzero(link.tau == delays[l, n]) if n < uniq.size else []
                 k = len(rays)
-                assert torch.equal(bank._cn[l, n, :k], torch.as_tensor(coeff[rays]))
-                assert not bank._cn[l, n, k:].any()
+                assert torch.equal(bank.links.coeff[l, n, :k], torch.as_tensor(coeff[rays]))
+                assert not bank.links.coeff[l, n, k:].any()
                 np.testing.assert_array_equal(nu[l, n * J:n * J + k], link.nu[rays])
                 assert (nu[l, n * J + k:(n + 1) * J] == 0).all()
 
@@ -170,7 +169,7 @@ def _ray_form_error(bank, links, slot, freqs, f32_phase=False) -> float:
     """The largest over links of max |dH| / max |H| between the bank's
     response and the float64 ray form; with f32_phase, of the ray form whose
     frequency phases are rounded to complex64 from a float32 angle."""
-    t = slot * bank._slot_dur + bank._sym_t.cpu().numpy()
+    t = slot * bank.slot_s + bank.sym_t.cpu().numpy()
     want = channel.slot_response(links, t, freqs, "cpu")
     if f32_phase:
         got = []

@@ -167,9 +167,12 @@ def test_pdsch_transmit_grid_equal(kw):
 
 
 def test_cdl_frequency_response_equal():
-    """H[L, S, K, rx, tx] from the same ray constants: phases built on the
-    host in float64 on both sides, then a complex64 contraction over up to
-    460 rays summed in another order (SUM_RTOL of max|H|)."""
+    """H[L, S, K, rx, tx] from the same ray constants: the reference's host
+    float64 phases and complex64 contraction over up to 460 rays, the port's
+    phases from float64 on the device (within one float32 ulp of the host's)
+    and a fold and product per cluster delay, summed in another order
+    (SUM_RTOL of max|H|). The port's batch of the links equals the batch it
+    makes of the reference's padded arrays."""
     bl_j = j_links.stack_links(example_links(3, seed=5))
     bl_t = t_links.links_from_numpy(bl_j.coeff, bl_j.tau, bl_j.nu, device="cpu")
     t = np.arange(14) * (5e-4 / 14)
@@ -178,5 +181,7 @@ def test_cdl_frequency_response_equal():
     ht = t_links.batched_frequency_response(bl_t, t, f, scale=1579.0).numpy()
     _close(ht, hj)
     bl_s = t_links.stack_links(example_links(3, seed=5), device="cpu")
-    np.testing.assert_array_equal(bl_s.coeff.numpy(), bl_j.coeff)
-    np.testing.assert_array_equal(bl_s.tau, bl_j.tau)
+    np.testing.assert_array_equal(bl_s.coeff.numpy(), bl_t.coeff.numpy())
+    np.testing.assert_array_equal(bl_s.nu.numpy(), bl_t.nu.numpy())
+    np.testing.assert_array_equal(bl_s.delays, bl_t.delays)
+    assert (bl_s.n_rays, bl_s.ports) == (bl_t.n_rays, bl_t.ports) == (bl_j.tau.shape[1], (2, 16))

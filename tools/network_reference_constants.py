@@ -105,7 +105,7 @@ def network(n_rb, nfft, num_cells) -> dict:
         "num_cells": len(runner.sims), "n_rb": s0.n_rb, "nfft": s0.info.nfft, "n_tx": s0.n_tx,
         "n_ues": s0.n_ues, "seconds": secs,
         "cross_los": {f"{d},{s}": [bool(x) for x in v] for (d, s), v in sorted(cross_los.items())},
-        "bank_rays": [b._n_rays for b in runner.banks],
+        "bank_rays": [b.links.n_rays for b in runner.banks],
         "cells": per_cell,
     }
 
