@@ -7,7 +7,15 @@ Phases (each prints its own lines and raises on failure, so any failed phase
 gives a non-zero exit code and no final result line):
   1. the card's name and power limit (nvidia-smi), and the build of every
      CUDA kernel of the main path from the sources in the checkout;
-  2. each kernel against its plain PyTorch version on the card, at the
+  2. each kernel against its plain PyTorch version on the card. 2a the
+     threefry normal kernel (csrc/threefry_normal.cu): every one of the 2^23
+     uniforms and normals a draw can take, the words and uniforms of the DL
+     grid's draw, and complex draws at the slot loop's DL and UL grids and
+     the post-pass's [1228800, 16] (scale sqrt(1/2) and a post-pass sigma),
+     all bit-equal; one launch a draw; at the DL and post-pass shapes the
+     kernel's device time (profiler), the wrapper's wall time a draw (three
+     readings of 20 draws), the plain version's time, and the bound.
+     2b the layered LDPC kernel, at the
      shapes the main path gives it and at odd shapes (BG2 with punctured
      columns, a ragged lifting size, one codeword, more codewords than two
      CTAs per SM hold, lifting sizes below a warp, one sweep) and on inputs
@@ -153,6 +161,13 @@ PEAK_F32_FLOP_S = 67e12
 # t = post - msg, |t|, min1 compare, min2 update, sign select, sign product,
 # (norm*sprod)*sgn, *mag, t + new
 LDPC_OPS_PER_EDGE = 10
+# uint32 operations per complex element of the threefry normal kernel: per
+# part, 2 key adds, 20 rounds of add, rotate and xor, 5 key injections of 2
+# adds, the words' xor, and the uniform's shift and or. Hopper runs 64
+# INT32 operations per SM and clock (NVIDIA H100 white paper; 132 SMs at the
+# SXM part's 1.98 GHz boost clock).
+THREEFRY_INT_OPS = 2 * (2 + 20 * 3 + 5 * 2 + 1 + 2)
+PEAK_INT32_OP_S = 132 * 64 * 1.98e9
 
 SLICE_SINR_ATOL_DB = 1e-3
 
@@ -179,6 +194,28 @@ def _time_cuda(fn, inputs, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_device_ms(fn, inputs, reps, kernel):
+    """Mean device ms of one launch of the kernel whose name holds `kernel`,
+    over the launches the profiler records in `reps` calls after one warm-up
+    call (each call launches it once; the profiler can miss one as its
+    session starts). Returns (ms, launches recorded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not 0 < len(us) <= reps:
+        raise AssertionError(f"{kernel}: the profiler saw {len(us)} launches in {reps} calls")
+    return sum(us) / len(us) / 1e3, len(us)
 
 
 def _noisy_llrs(bg, z, n_cw, sigma, seed, dev, n_sets=1, puncture=True):
@@ -225,11 +262,87 @@ def _pressed_llrs(kind, bg, z, n_cw, seed, dev):
     return torch.as_tensor(llr, device=dev)
 
 
+# the slot loop's DL and UL grids and the drops' post-pass draw (273 PRB,
+# 5 UEs, 16 gNB ports; 20 slots of nfft 4096 with their cyclic prefixes)
+THREEFRY_SHAPES = {"dl": (5, 2, 14, 3276), "ul": (5, 16, 14, 3276), "post_pass": (1228800, 16)}
+
+
+def phase_threefry(dev):
+    """Phase 2a: the threefry normal kernel against its plain version."""
+    import numpy as np
+    import torch
+
+    from isac_tpu_torch.utils import prng
+
+    uniform, normal = prng.normal_table_cuda(dev)
+    bits = torch.arange(1 << 23, dtype=torch.int64, device=dev) << 9
+    u = prng.uniform_from_bits(bits)
+    plain = prng.erf_inv(u) * prng._SQRT2
+    if not torch.equal(uniform.view(torch.int32), u.view(torch.int32)):
+        raise AssertionError("threefry_normal: a uniform of the table differs")
+    k32, p32 = normal.view(torch.int32).to(torch.int64), plain.view(torch.int32).to(torch.int64)
+    n_diff, gap = int((k32 != p32).sum()), int((k32 - p32).abs().max())
+    max_err = float((normal - plain).abs().max())
+    print(f"kernel threefry_normal table: 2^23 uniforms equal; normals differing {n_diff}, "
+          f"largest gap {gap} ulp, max |kernel - plain| {max_err}", flush=True)
+    if n_diff:
+        raise AssertionError(f"threefry_normal: {n_diff} normals of the table differ")
+    del uniform, normal, bits, u, plain
+
+    key = np.random.SeedSequence([20261018, 7, 7]).generate_state(2).astype(np.uint32)
+    kr, ki = prng.split(key)
+    words = prng.complex_normal_cuda(key, THREEFRY_SHAPES["dl"], dev, what="bits")
+    for part, k in ((0, kr), (1, ki)):
+        if not torch.equal(words[..., part], prng.random_bits(k, THREEFRY_SHAPES["dl"], dev)):
+            raise AssertionError("threefry_normal: the words of the DL draw differ")
+    sigma = float(np.float32(np.sqrt(1.380649e-23 * 290.0 * 10**0.7 * 122.88e6 / 2.0)))
+    cases = [(name, shape, prng._SQRT_HALF) for name, shape in THREEFRY_SHAPES.items()]
+    cases.append(("post_pass", THREEFRY_SHAPES["post_pass"], sigma))
+    for name, shape, scale in cases:
+        before = prng.complex_normal_cuda.launches
+        got = prng.complex_normal(key, shape, dev, scale=scale)
+        want = prng.complex_normal(key, shape, dev, scale=scale, impl="torch")
+        torch.cuda.synchronize()
+        if prng.complex_normal_cuda.launches != before + 1:
+            raise AssertionError("threefry_normal: a draw took other than one launch")
+        if not torch.equal(torch.view_as_real(got).view(torch.int32),
+                           torch.view_as_real(want).view(torch.int32)):
+            raise AssertionError(f"threefry_normal {name} {shape} scale {scale}: differs")
+        max_err = max(max_err, float((got - want).abs().max()))
+        print(f"kernel threefry_normal {name} {shape} scale {scale:.6g}: bit-equal, one launch",
+              flush=True)
+    del got, want
+
+    timed = {}
+    for name in ("dl", "post_pass"):
+        shape = THREEFRY_SHAPES[name]
+        keys = [np.random.SeedSequence([20261018, 7, s]).generate_state(2).astype(np.uint32)
+                for s in range(4)]
+        device_ms, seen = _kernel_device_ms(lambda k: prng.complex_normal(k, shape, dev), keys,
+                                            10, "threefry_normal_kernel")
+        wall = [_time_cuda(lambda k: prng.complex_normal(k, shape, dev), keys, 20)
+                for _ in range(3)]
+        plain_ms = _time_cuda(
+            lambda k: prng.complex_normal(k, shape, dev, impl="torch"), keys, 3)
+        n = int(np.prod(shape))
+        bytes_ms = 8 * n / PEAK_BYTES_S * 1e3
+        ops_ms = THREEFRY_INT_OPS * n / PEAK_INT32_OP_S * 1e3
+        timed[name] = {"ms": device_ms, "wall_ms_readings": wall,
+                       "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"kernel threefry_normal {name} {shape}: kernel {device_ms:.4f} device ms "
+              f"(profiler, {seen} of 10 launches recorded); wrapper wall time "
+              + " ".join(f"{r:.4f}" for r in wall)
+              + f" ms a draw (CUDA events, 3 readings of 20 draws); plain {plain_ms:.3f} ms, "
+              f"bound {timed[name]['bound_ms']:.4f} ms ({timed[name]['bound_by']})", flush=True)
+    return timed, max_err
+
+
 MAIN_CASE = (1, 384, 116, 6)  # the 273-PRB main path: C=29 code blocks x 4 links
 
 
 def phase_kernels(dev):
-    """Phase 2: the layered LDPC kernel against its plain version."""
+    """Phase 2b: the layered LDPC kernel against its plain version."""
     import torch
 
     from isac_tpu_torch.ops import ldpc
@@ -703,6 +816,69 @@ def _recording_layered():
         transport.decode_layered = real
 
 
+@contextlib.contextmanager
+def _counting_draws(program_counts=False):
+    """Within the block, the noise draws of the main path: the engine's
+    `_noise` calls, every `prng.complex_normal` call (the `_noise` draws and
+    the sensing post-pass's) and the real normals they drew; on leaving, the
+    threefry kernel's launches, counted from 0 on entry. program_counts:
+    also the port's own counters `prng.normals` and `prng.kernel_normals`
+    (tracing recorded: for frames that are not timed)."""
+    from isac_tpu_torch.sim.cell import CellSimulator
+    from isac_tpu_torch.utils import prng, tracing
+
+    seen = {"noise": 0, "draws": 0, "normals": 0}
+    real_noise, real_draw = CellSimulator._noise, prng.complex_normal
+
+    def noise(self, shape, key):
+        seen["noise"] += 1
+        return real_noise(self, shape, key)
+
+    def draw(*args, **kwargs):
+        out = real_draw(*args, **kwargs)
+        seen["draws"] += 1
+        seen["normals"] += 2 * out.numel()
+        return out
+
+    CellSimulator._noise, prng.complex_normal = noise, draw
+    prng.complex_normal_cuda.launches = 0
+    if program_counts:
+        tracing.reset()
+        tracing.enable()
+    try:
+        yield seen
+    finally:
+        CellSimulator._noise, prng.complex_normal = real_noise, real_draw
+        seen["launches"] = prng.complex_normal_cuda.launches
+        if program_counts:
+            recs = tracing.records()
+            tracing.disable()
+            tracing.reset()
+            for k in ("prng.normals", "prng.kernel_normals"):
+                seen[k] = sum(r.counts.get(k, 0) for r in recs)
+
+
+def _held_draws(seen, post_pass, what):
+    """Every noise draw of a full-width run went through the threefry
+    kernel: one launch a draw, the engine's `_noise` draws and `post_pass`
+    post-pass draws and nothing else, and where recorded, the port's
+    counters equal to the normals drawn. Returns the counts."""
+    n_post = seen["draws"] - seen["noise"]
+    if seen["noise"] <= 0 or n_post != post_pass or seen["launches"] != seen["draws"]:
+        raise AssertionError(f"{what}: {seen['launches']} threefry launches for "
+                             f"{seen['noise']} _noise draws and {n_post} other draws "
+                             f"({post_pass} post-pass draws expected)")
+    out = {"launches": seen["launches"], "noise_draws": seen["noise"],
+           "post_pass_draws": n_post}
+    if "prng.normals" in seen:
+        if not seen["prng.kernel_normals"] == seen["prng.normals"] == seen["normals"]:
+            raise AssertionError(f"{what}: prng.kernel_normals {seen['prng.kernel_normals']}, "
+                                 f"prng.normals {seen['prng.normals']}, {seen['normals']} "
+                                 f"normals drawn")
+        out["kernel_normals"] = seen["prng.kernel_normals"]
+    return out
+
+
 def _kernel_equals_plain(calls, what):
     """The kernel against its plain version on recorded decoder inputs, by
     bit pattern of the posterior. Returns (max |err|, sorted (bg, z, codewords))."""
@@ -1131,8 +1307,9 @@ def phase_cell_full(dev):
             CELL_EXPECT[k] for k in ("n_rb", "nfft", "n_tx", "n_ues")):
         raise AssertionError(f"cell: {sim.n_rb} PRB, nfft {sim.info.nfft}, {sim.n_tx} ports, "
                              f"{sim.n_ues} UEs")
-    with _recording_layered() as seen:
+    with _recording_layered() as seen, _counting_draws(program_counts=True) as drawn:
         res = sim.run()
+    untimed_draws = _held_draws(drawn, 1, "cell untimed frame")
     retx = sum(1 for t in sim.metrics.trace if t["rv"] != 0)
     _check_against(_cell_outcome(sim, res), CELL_EXPECT, "cell untimed frame")
     kernel_err, shapes = _kernel_equals_plain(seen, "the 273-PRB cell frame's LLRs")
@@ -1148,26 +1325,28 @@ def phase_cell_full(dev):
         sim = example_cell(device=dev)
         torch.cuda.synchronize()
         decode_layered_cuda.launches = 0
-        t1 = time.perf_counter()
-        sim.run(finalize=False)
-        torch.cuda.synchronize()
-        slot_ms = (time.perf_counter() - t1) * 1e3 / sim.num_slots
-        launches = decode_layered_cuda.launches
-        rx_calls = sim.rx_calls
-        res = sim.finalize(sensing=False)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        res["sensing"] = sim.run_sensing()
-        torch.cuda.synchronize()
-        sensing_ms = (time.perf_counter() - t1) * 1e3
+        with _counting_draws() as drawn:
+            t1 = time.perf_counter()
+            sim.run(finalize=False)
+            torch.cuda.synchronize()
+            slot_ms = (time.perf_counter() - t1) * 1e3 / sim.num_slots
+            launches = decode_layered_cuda.launches
+            rx_calls = sim.rx_calls
+            res = sim.finalize(sensing=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res["sensing"] = sim.run_sensing()
+            torch.cuda.synchronize()
+            sensing_ms = (time.perf_counter() - t1) * 1e3
         if launches != rx_calls or rx_calls <= 0:
             raise AssertionError(f"cell: {launches} kernel launches for {rx_calls} "
                                  f"sch_receive_batch calls")
+        draws = _held_draws(drawn, 1, f"cell timed frame {len(reads)}")
         out = _cell_outcome(sim, res)
         _check_against(out, CELL_EXPECT, f"cell timed frame {len(reads)}")
         reads.append({"cell_slot_ms": slot_ms, "cell_sensing_ms": sensing_ms,
                       "ldpc_layered_launches": launches, "sch_receive_batch_calls": rx_calls,
-                      **out})
+                      "threefry": draws, **out})
         print(f"cell 273 PRB timed frame {len(reads) - 1}: " + json.dumps(reads[-1]), flush=True)
     mid = CELL_READINGS // 2
     result = {
@@ -1177,6 +1356,7 @@ def phase_cell_full(dev):
         "cell_sensing_ms_readings": [r["cell_sensing_ms"] for r in reads],
         "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
         "sch_receive_batch_calls_per_frame": [r["sch_receive_batch_calls"] for r in reads],
+        "threefry_untimed": untimed_draws, "threefry": reads[0]["threefry"],
         "slots": sim.num_slots, "setup_s": setup_s,
         "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
         "est_err_vs_jax": {k: max(float(np.max(np.abs(np.subtract(r[k], CELL_EXPECT[k]))))
@@ -1312,9 +1492,10 @@ def phase_network_full(dev):
     if {k: v.tolist() for k, v in runner.cross_los.items()} != NETWORK_EXPECT["cross_los"]:
         raise AssertionError(f"network: cross LoS {runner.cross_los}")
     torch.cuda.reset_peak_memory_stats()
-    with _recording_layered() as seen:
+    with _recording_layered() as seen, _counting_draws(program_counts=True) as drawn:
         results = runner.run()
     untimed_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    untimed_draws = _held_draws(drawn, len(runner.sims), "network untimed frame")
     outs = _network_outcome(runner, results)
     for c, (out, exp) in enumerate(zip(outs, NETWORK_EXPECT["cells"])):
         _check_against(out, exp, f"network untimed frame cell {c}")
@@ -1329,7 +1510,8 @@ def phase_network_full(dev):
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
     result, launches = _timed_network_frames(dev, 2, NETWORK_EXPECT["cells"], "network")
-    result.update(untimed_peak_memory_mb=untimed_peak_mb, setup_s=setup_s)
+    result.update(untimed_peak_memory_mb=untimed_peak_mb, setup_s=setup_s,
+                  threefry_untimed=untimed_draws)
     print("network 273 PRB x16 ports x2 cells x5 UEs, one frame, DL + UL interference, "
           "medians: " + json.dumps(result), flush=True)
     return result, launches, kernel_err
@@ -1356,18 +1538,20 @@ def _timed_network_frames(dev, num_cells, exp_cells, metric):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         decode_layered_cuda.launches = 0
-        t1 = time.perf_counter()
-        runner._build_banks()
-        torch.cuda.synchronize()
-        bank_s = time.perf_counter() - t1
-        results = runner.run()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t1
+        with _counting_draws() as drawn:
+            t1 = time.perf_counter()
+            runner._build_banks()
+            torch.cuda.synchronize()
+            bank_s = time.perf_counter() - t1
+            results = runner.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
         launches = decode_layered_cuda.launches
         rx_calls = sum(s.rx_calls for s in runner.sims)
         if launches != rx_calls or rx_calls <= 0:
             raise AssertionError(f"{metric}: {launches} kernel launches for {rx_calls} "
                                  f"sch_receive_batch calls")
+        draws = _held_draws(drawn, 0, f"{metric} timed frame {len(reads)}")
         outs = _network_outcome(runner, results)
         for c, (out, exp) in enumerate(zip(outs, exp_cells)):
             _check_against(out, {k: exp[k] for k in NETWORK_COUNT_KEYS},
@@ -1377,7 +1561,7 @@ def _timed_network_frames(dev, num_cells, exp_cells, metric):
             f"{metric}_frame_s": secs, f"{metric}_slot_ms": secs * 1e3 / n,
             f"{metric}_cell_slots_per_s": num_cells * n / secs, "bank_build_s": bank_s,
             "ldpc_layered_launches": launches, "sch_receive_batch_calls": rx_calls,
-            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "threefry": draws, "peak_memory_mb": torch.cuda.max_memory_allocated() / 2**20,
             "stage_host_ms_per_slot": {k: round(v * 1e3 / n, 3)
                                        for k, v in runner.stage_s.items()},
             "dl_crc_fail": [sum(o["dl_crc_fail"]) for o in outs],
@@ -1395,6 +1579,7 @@ def _timed_network_frames(dev, num_cells, exp_cells, metric):
         "stage_host_ms_per_slot": mid["stage_host_ms_per_slot"],
         "bank_build_s_readings": [r["bank_build_s"] for r in reads],
         "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
+        "threefry": reads[0]["threefry"],
         "peak_memory_mb": max(r["peak_memory_mb"] for r in reads),
     }, reads[0]["ldpc_layered_launches"]
 
@@ -1584,8 +1769,9 @@ def _check_split_rule(est, ra, exp, what):
 
 
 def phase_network7(dev):
-    """Phase 10: seven co-channel cells at 273 PRB. Returns launches of the
-    first timed frame and the max kernel error."""
+    """Phase 10: seven co-channel cells at 273 PRB. Returns the LDPC
+    kernel's launches of the first timed frame, the max kernel error and the
+    threefry kernel's counts of that frame."""
     import torch
 
     from isac_tpu_torch.example import example_network
@@ -1611,9 +1797,11 @@ def phase_network7(dev):
     runner._build_banks()
     torch.cuda.synchronize()
     bank_build_s = time.perf_counter() - t1
-    with _recording_layered() as seen, _recording_music() as ras:
+    with (_recording_layered() as seen, _recording_music() as ras,
+          _counting_draws(program_counts=True) as drawn):
         results = runner.run()
     untimed_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    untimed_draws = _held_draws(drawn, 7, "network7 untimed frame")
     if len(ras) != 7:
         raise AssertionError(f"network7: {len(ras)} MUSIC calls for 7 cells")
     splits = []
@@ -1636,10 +1824,10 @@ def phase_network7(dev):
     setup_s = time.perf_counter() - t0
     result, launches = _timed_network_frames(dev, 7, exp["cells"], "network7")
     result.update(untimed_bank_build_s=bank_build_s, untimed_peak_memory_mb=untimed_peak_mb,
-                  setup_s=setup_s, card=_smi_line())
+                  setup_s=setup_s, card=_smi_line(), threefry_untimed=untimed_draws)
     print("network7 273 PRB x16 ports x7 cells x5 UEs, one frame, DL + UL interference, "
           "medians: " + json.dumps(result), flush=True)
-    return launches, kernel_err
+    return launches, kernel_err, result["threefry"]
 
 
 # Float tolerances for a result surface that two slot-loop frames of one seed
@@ -1712,6 +1900,15 @@ def _within_float_tol(path: str, a, b) -> bool:
     return bool(np.nanmax(d) <= tol)
 
 
+# The profiler's runtime events of a kernel launch. The profiler can tie one
+# to a copy that an op made elsewhere: at full width the LDPC kernel's
+# cudaLaunchKernel inside a segment listed a device-to-host copy, and not its
+# own kernel, while the op outside that made the copy listed it too. A launch
+# makes no copy, so these events are never counted as a copy's source; the
+# copy is still counted once, by its op.
+_LAUNCH_EVENTS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
 def _segment_copies(prof) -> dict:
     """Device copies by direction, launched from inside and outside the
     `cell.segment` ranges of a profiled run (a copy is attributed to the
@@ -1727,6 +1924,8 @@ def _segment_copies(prof) -> dict:
         if e.device_type != DeviceType.CPU:
             out["d2h_device_events"] += "DtoH" in e.name
             continue
+        if e.name in _LAUNCH_EVENTS:
+            continue
         inside = any(a <= e.time_range.start and e.time_range.end <= b for a, b in segs)
         for k in e.kernels:
             for d in ("d2h", "h2d"):
@@ -1740,7 +1939,8 @@ def _segment_copies(prof) -> dict:
 def phase_block_mode(dev, cell_slot_ms):
     """Phase 9a: block mode (CellSimulator(block_slots=)) at full width
     against the slot loop, its device-to-host copies inside segments, and
-    its slot time. Returns the kernel launches of the first timed frame."""
+    its slot time. Returns the LDPC kernel's launches of the first timed
+    frame and the threefry kernel's counts of that frame."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1753,12 +1953,13 @@ def phase_block_mode(dev, cell_slot_ms):
         decode_layered_cuda.launches = 0
         ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
                else contextlib.nullcontext())
-        with ctx as prof:
+        with ctx as prof, _counting_draws() as drawn:
             res = sim.run()
             torch.cuda.synchronize()
         if decode_layered_cuda.launches != sim.rx_calls or sim.rx_calls <= 0:
             raise AssertionError(f"block {block_slots}: {decode_layered_cuda.launches} kernel "
                                  f"launches for {sim.rx_calls} sch_receive_batch calls")
+        _held_draws(drawn, 1, f"block_slots={block_slots} frame")
         _check_against(_cell_outcome(sim, res), CELL_EXPECT, f"block_slots={block_slots} frame")
         return sim, _result_leaves(res), prof
 
@@ -1804,29 +2005,32 @@ def phase_block_mode(dev, cell_slot_ms):
         sim = example_cell(device=dev, block_slots=8)
         torch.cuda.synchronize()
         decode_layered_cuda.launches = 0
-        t1 = time.perf_counter()
-        sim.run(finalize=False)
-        torch.cuda.synchronize()
-        slot_ms = (time.perf_counter() - t1) * 1e3 / sim.num_slots
-        launches = decode_layered_cuda.launches
+        with _counting_draws() as drawn:
+            t1 = time.perf_counter()
+            sim.run(finalize=False)
+            torch.cuda.synchronize()
+            slot_ms = (time.perf_counter() - t1) * 1e3 / sim.num_slots
+            launches = decode_layered_cuda.launches
+            res = sim.finalize(sensing=False)
         if launches != sim.rx_calls:
             raise AssertionError(f"block timed frame: {launches} launches, {sim.rx_calls} "
                                  f"receives")
-        res = sim.finalize(sensing=False)
+        draws = _held_draws(drawn, 0, f"block timed frame {len(reads)}")
         out = _cell_outcome(sim, res)
         _check_against(out, {k: v for k, v in CELL_EXPECT.items()
                              if k != "detections" and k not in CELL_EST_TOL},
                        f"block timed frame {len(reads)}")
         reads.append({"cell_block_slot_ms": slot_ms, "ldpc_layered_launches": launches,
-                      "segments": len(sim.segment_lens)})
+                      "segments": len(sim.segment_lens), "threefry": draws})
     mid = sorted(r["cell_block_slot_ms"] for r in reads)[BLOCK_READINGS // 2]
     print("block mode 273 PRB, block_slots=8, three frames on fresh simulators: " + json.dumps({
         "cell_block_slot_ms": mid,
         "cell_block_slot_ms_readings": [r["cell_block_slot_ms"] for r in reads],
         "cell_slot_ms": cell_slot_ms,
         "ldpc_layered_launches_per_frame": [r["ldpc_layered_launches"] for r in reads],
-        "segments_per_frame": [r["segments"] for r in reads]}), flush=True)
-    return reads[0]["ldpc_layered_launches"]
+        "segments_per_frame": [r["segments"] for r in reads],
+        "threefry": reads[0]["threefry"]}), flush=True)
+    return reads[0]["ldpc_layered_launches"], reads[0]["threefry"]
 
 
 def phase_distributed(dev):
@@ -1926,15 +2130,18 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
-    # phase 1: build the path's one kernel source
-    t_start = t0 = time.perf_counter()
-    cuda_build.build("ldpc_layered")
-    secs = time.perf_counter() - t0
-    log = cuda_build.BUILD_LOG.get("ldpc_layered", "(already built)")
-    info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"build ldpc_layered: {secs:.1f} s; " + " | ".join(info), flush=True)
+    # phase 1: build the path's kernel sources
+    t_start = time.perf_counter()
+    for name in ("ldpc_layered", "threefry_normal"):
+        t0 = time.perf_counter()
+        cuda_build.build(name)
+        secs = time.perf_counter() - t0
+        log = cuda_build.BUILD_LOG.get(name, "(already built)")
+        info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"build {name}: {secs:.1f} s; " + " | ".join(info), flush=True)
 
     # phase 2: kernels against their plain versions on the card
+    threefry, threefry_err = phase_threefry(dev)
     main_k, max_err = phase_kernels(dev)
 
     # phase 3: slice parity
@@ -1969,20 +2176,20 @@ def main() -> int:
     t8 = time.perf_counter()
     phase_network_parity(dev)
     phase_city_entry(dev)
-    _, net_launches, net_err = phase_network_full(dev)
+    net_res, net_launches, net_err = phase_network_full(dev)
     max_err = max(max_err, net_err)
     torch.cuda.empty_cache()
 
     # phase 9: block mode and the distributed paths (the same kernel)
     t9 = time.perf_counter()
-    block_launches = phase_block_mode(dev, cell_res["cell_slot_ms"])
+    block_launches, block_draws = phase_block_mode(dev, cell_res["cell_slot_ms"])
     torch.cuda.empty_cache()
     mesh_link_launches = phase_distributed(dev)
     torch.cuda.empty_cache()
 
     # phase 10: seven co-channel cells at full width (the same kernel)
     t10 = time.perf_counter()
-    net7_launches, net7_err = phase_network7(dev)
+    net7_launches, net7_err, net7_draws = phase_network7(dev)
     max_err = max(max_err, net7_err)
     t_end = time.perf_counter()
     print(f"script seconds after import: {t_end - t_start:.1f} in all, phases 1-6 "
@@ -2004,6 +2211,21 @@ def main() -> int:
         "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
         "library_ms": None, "ms_readings": main_k["ms_readings"],
         "msg_traffic_bound_ms": main_k["msg_traffic_bound_ms"],
+    }, {
+        "name": "threefry_normal", "route": "cuda",
+        "source": "isac_tpu_torch/csrc/threefry_normal.cu",
+        "replaces": None, "max_abs_err": threefry_err, "library_ms": None,
+        "launches": cell_res["threefry"]["launches"],
+        "launches_by_path": {"cell": cell_res["threefry"]["launches"],
+                             "network": net_res["threefry"]["launches"],
+                             "block": block_draws["launches"],
+                             "network7": net7_draws["launches"]},
+        "draws_by_path": {"cell": cell_res["threefry"], "network": net_res["threefry"],
+                          "block": block_draws, "network7": net7_draws,
+                          "cell_untimed": cell_res["threefry_untimed"],
+                          "network_untimed": net_res["threefry_untimed"]},
+        "shapes": {name: list(shape) for name, shape in THREEFRY_SHAPES.items()},
+        **{f"{name}_{k}": v for name, t in threefry.items() for k, v in t.items()},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ budget), as in the reference. What differs in form:
   (`_materialize_due`). The due slots, and so the trace, are the reference's.
 - Every random draw is the reference's: the key of (seed, slot, salt) comes
   from numpy's SeedSequence on the host and `utils/prng.py` draws the same
-  threefry normals as `jax.random` (bits exact, normals within ~2 ulps).
+  threefry normals as `jax.random` (bits exact, normals within ~2 ulps); on
+  the card each draw, the post-pass's too, is one launch of its kernel.
 - The channel of each direction is one batch of links in the cluster form
   (ops/cdl.py `SlotChannel`, as the network banks'): the frequency phases of
   the delays are built once on the device, each slot's time phases there
@@ -1099,13 +1100,10 @@ class CellSimulator:
                 mesh=self.mesh, mesh_axis=self.mesh_time_axis,
             )
             n = int(self.info.symbol_lengths_slots(self.num_slots).sum())
-            kr, ki = prng.split(self._slot_key(10**6, 0))
             sigma = float(np.float32(np.sqrt(params.n0 / 2.0)))
             with tracing.span("sensing.noise", device=True):
-                noise = torch.complex(
-                    prng.normal(kr, (n, self.n_tx), self.dev).mul_(sigma),
-                    prng.normal(ki, (n, self.n_tx), self.dev).mul_(sigma),
-                )
+                noise = prng.complex_normal(self._slot_key(10**6, 0), (n, self.n_tx),
+                                            self.dev, scale=sigma)
             est = chain([self._to_dev(self._sen_slots[st]) for st in starts], noise)
             del noise
             small = [k for k in ("rngEst", "velEst", "aziEst", "eleEst") if k in est]

@@ -5,7 +5,15 @@ split keys, random bits and the uniforms built from them are integer or
 bit-exact functions and must be equal. Normals go through erf_inv, whose
 log1p differs from XLA's by an ulp on some inputs: they are held to rel 5e-7
 (measured: at most 2.4e-7, about 2 ulps).
+
+Also on the CPU: the scaled complex draw equals the post-pass's form, the
+`impl` choice, the draws' counts, and the kernel's constants against the plain
+version's. The kernel itself is held to the plain version on the card in
+tests/test_torch_prng_card.py.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,7 +23,7 @@ import jax
 import jax.numpy as jnp
 from jax._src import prng as jprng
 
-from isac_tpu_torch.utils import prng
+from isac_tpu_torch.utils import prng, tracing
 
 torch.set_num_threads(1)
 
@@ -108,3 +116,78 @@ def test_no_device_means_the_card(draw):
 def test_key_shape_checked():
     with pytest.raises(ValueError):
         prng.split(np.zeros(3, np.uint32))
+
+
+# a post-pass sigma, sqrt(n0 / 2) in float32, with n0 the thermal noise of a
+# 122.88 MHz sample rate and a 7 dB noise figure
+POST_PASS_SIGMA = float(np.float32(np.sqrt(1.380649e-23 * 290.0 * 10**0.7 * 122.88e6 / 2.0)))
+
+
+def _bits(z: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(z).view(torch.int32)
+
+
+@pytest.mark.parametrize("key", KEYS[:2], ids=range(2))
+@pytest.mark.parametrize("scale", [prng._SQRT_HALF, POST_PASS_SIGMA, 1.0],
+                         ids=["sqrt_half", "post_pass_sigma", "one"])
+def test_complex_normal_scale_is_the_post_pass_form(key, scale):
+    """complex_normal(scale=s) is bit for bit the post-pass's former
+    torch.complex(normal(kr) * s, normal(ki) * s)."""
+    shape = (37, 4)
+    kr, ki = prng.split(key)
+    want = torch.complex(prng.normal(kr, shape, "cpu") * scale,
+                         prng.normal(ki, shape, "cpu") * scale)
+    got = prng.complex_normal(key, shape, "cpu", scale=scale)
+    assert got.dtype == torch.complex64 and got.shape == shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("impl", ["cuda", "triton", ""])
+def test_impl_checked(impl):
+    """The kernel on the CPU raises, as does an unknown impl: no draw falls
+    back to another implementation."""
+    with pytest.raises(ValueError):
+        prng.complex_normal(KEYS[0], (4,), "cpu", impl=impl)
+
+
+def test_kernel_entry_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        prng.complex_normal_cuda(KEYS[0], (4,), "cpu")
+
+
+def test_normals_counted():
+    """Every draw counts its real normals as prng.normals; on the CPU the
+    kernel draws none, so prng.kernel_normals is never counted."""
+    tracing.reset()
+    tracing.enable()
+    try:
+        with tracing.span("draws"):
+            prng.complex_normal(KEYS[0], (3, 5), "cpu")
+            prng.complex_normal(KEYS[1], (7,), "cpu", scale=2.0, impl="torch")
+            prng.normal(KEYS[2], (4,), "cpu")
+        recs = tracing.records()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    (rec,) = [r for r in recs if r.name == "draws"]
+    assert rec.counts == {"prng.normals": 2 * 15 + 2 * 7 + 4}
+
+
+def _hex_floats(text: str) -> list:
+    return [float.fromhex(m) for m in re.findall(r"-?0x[0-9a-f]+(?:\.[0-9a-f]*)?p[-+]?\d+", text)]
+
+
+def test_kernel_constants_are_the_plain_versions():
+    """The kernel's float constants are the float32 values the plain
+    version's Python scalars round to: the uniform's range, sqrt(2) and both
+    erf_inv tables, in the order the polynomial takes them."""
+    src = (Path(prng.__file__).parents[1] / "csrc" / "threefry_normal.cu").read_text()
+    f32 = [float(np.float32(c)) for c in (prng._LO, prng._SPAN, prng._SQRT2)]
+    for name, want in zip(("U_LO", "U_SPAN", "SQRT2"), f32):
+        (line,) = [ln for ln in src.splitlines() if ln.startswith(f"#define {name} ")]
+        value = _hex_floats(line) or [float(line.split()[-1].rstrip("f"))]
+        assert value == [want], name
+    body = src[src.index("float erf_inv("):src.index("float normal_of(")]
+    lits = _hex_floats(body)
+    assert lits[0::2] == [float(np.float32(c)) for c in prng._ERFINV_SMALL]
+    assert lits[1::2] == [float(np.float32(c)) for c in prng._ERFINV_LARGE]
