@@ -17,6 +17,7 @@ from isac_tpu_torch.config.params import (
     RadarConfig,
     RegionOfInterest,
     SchedulingParams,
+    SectorGNBParams,
     SimulationParameters,
     TargetParams,
     TimeParams,
@@ -31,6 +32,6 @@ __all__ = [
     "CarrierConfig", "OFDMInfo", "TDDConfig", "determine_prb", "frequency_range",
     "ofdm_info", "parse_tdd_pattern", "CDLParams", "CellParams", "CityParams",
     "GNBParams", "LogParams", "PathlossParams", "RadarConfig", "RegionOfInterest",
-    "SchedulingParams", "SimulationParameters", "TargetParams", "TimeParams",
+    "SchedulingParams", "SectorGNBParams", "SimulationParameters", "TargetParams", "TimeParams",
     "TrafficParams", "UEParams", "ULA", "UPA", "assign_cell_parameters",
 ]

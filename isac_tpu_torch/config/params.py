@@ -128,6 +128,13 @@ class GNBParams:
     num_harq: int = 16
     radar: RadarConfig = field(default_factory=RadarConfig)
 
+    # An omni TRxP: no boresight, no tilt, no element pattern. A sector's
+    # TRxP is SectorGNBParams, which makes these two fields; here they are
+    # class attributes, so that the fields of an omni TRxP stay the upstream
+    # set one for one.
+    boresight_deg = None
+    downtilt_deg = 0.0
+
     @property
     def num_tx_ants(self) -> int:
         return self.antenna.num_elements
@@ -155,6 +162,21 @@ class GNBParams:
         return parse_tdd_pattern(
             self.tdd_pattern, self.tdd_special_slot[0], self.tdd_special_slot[2]
         )
+
+
+@dataclass(frozen=True)
+class SectorGNBParams(GNBParams):
+    """One sector's TRxP of a multi-sector site (TR 38.901 §7.1.3, §7.3):
+    its array turned to `boresight_deg` (azimuth from +x, counter-clockwise)
+    and tilted down mechanically by `downtilt_deg`, with the Table 7.3-1
+    element pattern at the gNB end of every link (ops/cdl.py GnbSector). Its
+    UEs are dropped within +-60 deg of the boresight."""
+
+    boresight_deg: float = 30.0
+    downtilt_deg: float = 12.0
+
+
+SECTOR_WEDGE_DEG = 120.0  # the azimuth span a sector's UEs are dropped in
 
 
 @dataclass(frozen=True)
@@ -381,7 +403,10 @@ def assign_cell_parameters(sim: SimulationParameters) -> list:
         if ue.position_mode == "predefined" and ue.positions is not None:
             ue_pos = np.asarray(ue.positions, dtype=np.float64)
         else:
-            ue_pos = poisson_points_2d(rng_ue, center, ue.drop_radius, ue.num_ues, ue.height)
+            wedge = (None if gnb.boresight_deg is None
+                     else (gnb.boresight_deg, SECTOR_WEDGE_DEG))  # a sector's UEs: its wedge
+            ue_pos = poisson_points_2d(rng_ue, center, ue.drop_radius, ue.num_ues, ue.height,
+                                       wedge=wedge)
         if tgt.position_mode == "predefined" and tgt.positions is not None:
             tg_pos = np.asarray(tgt.positions, dtype=np.float64)
         else:

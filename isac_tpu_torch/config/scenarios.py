@@ -19,6 +19,7 @@ from isac_tpu_torch.config.params import (
     PathlossParams,
     RadarConfig,
     SchedulingParams,
+    SectorGNBParams,
     SimulationParameters,
     TargetParams,
     TimeParams,
@@ -92,24 +93,34 @@ def multi_ue_cell(sim: SimulationParameters, num_ues: int = 8, seed: int = 0) ->
 
 
 def multi_cell(sim: SimulationParameters, num_cells: int = 2, seed: int = 0,
-               num_ues: int = 5) -> SimulationParameters:
+               num_ues: int = 5, sectors: int = 1) -> SimulationParameters:
     """BASELINE config #5: `num_cells` co-channel copies of the shipped cell
     on the hexagonal grid of sites 500 m apart (the centre site, then ring
     after ring: 7 sites fill the first ring, 19 the second), with `num_ues`
     UEs in every cell, the first included. No wrap-around is applied: the
-    outer ring sees only the sites inside the layout."""
+    outer ring sees only the sites inside the layout.
+
+    `sectors` = 3 gives each of the `num_cells` sites three co-sited TRxPs,
+    the ITU-R M.2412 layout (19 sites: 57 TRxPs): TRxP k (cell k + 1) stands
+    at site k // 3 with its boresight at 30 + 120 * (k % 3) deg and a
+    mechanical downtilt of 12 deg (SectorGNBParams), and its `num_ues` UEs
+    are dropped in its 120 deg wedge. Each TRxP takes the seeds a cell k
+    takes with one sector; it serves its own drop."""
     from isac_tpu_torch.topology.wraparound import hex_cell_centers
 
+    if sectors not in (1, 3):
+        raise ValueError(f"sectors must be 1 or 3, not {sectors}")
     sim = open_street_map_city(sim, seed=seed)
     sim.ue["cell1"] = replace(sim.ue["cell1"], num_ues=num_ues)
     base = sim.bs["cell1"]
     centers = hex_cell_centers(num_cells, inter_site_distance=500.0)
-    for i in range(num_cells):
+    for i in range(num_cells * sectors):
         name = f"cell{i + 1}"
-        pos = (float(centers[i, 0]), float(centers[i, 1]), 30.0)
-        sim.bs[name] = GNBParams(
-            **{**base.__dict__, "cell_id": i + 1, "position": pos}
-        )
+        site = centers[i // sectors]
+        kw = {**base.__dict__, "cell_id": i + 1, "position": (float(site[0]), float(site[1]), 30.0)}
+        sim.bs[name] = (GNBParams(**kw) if sectors == 1 else
+                        SectorGNBParams(**kw, boresight_deg=30.0 + 120.0 * (i % 3),
+                                        downtilt_deg=12.0))
         for m, default in (
             (sim.ue, UEParams(num_ues=num_ues, seed=seed + i)),
             (sim.target, TargetParams(seed=seed + 100 + i)),

@@ -12,6 +12,11 @@ slot's response; the engines (sim/cell.py) and the network banks
 (sim/network.py) hold one each, batched_frequency_response and
 cdl_frequency_response compute it at given times. freq_phases and
 time_phases, the host's float64 phases, are the tests' reference.
+
+A link whose gNB end is a sector's TRxP (GnbSector) carries that end's
+TR 38.901 Table 7.3-1 element pattern and its array turned to the sector
+(§7.1.3), and that end's CDL angles are translated to the link's geometric
+direction (§7.7.5.1); an omni link (None) is drawn as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -169,6 +174,77 @@ class CDLLink:
     delay_spread_ns: float
 
 
+@dataclass(frozen=True)
+class GnbSector:
+    """The gNB end of a link at a sector's TRxP: `end` is the end of the
+    link the gNB is ("tx": it departs, the downlink; "rx": it receives, the
+    uplink), `boresight_deg` and `downtilt_deg` its array's bearing and
+    mechanical downtilt (TR 38.901 §7.1.3, alpha and beta; gamma 0),
+    `azimuth_deg` and `zenith_deg` the geometric direction from the TRxP to
+    the UE (global coordinates)."""
+
+    end: str
+    boresight_deg: float
+    downtilt_deg: float
+    azimuth_deg: float
+    zenith_deg: float
+
+
+def gnb_sector(gnb, ue_position, end: str) -> GnbSector | None:
+    """The GnbSector of a link between `gnb` (a GNBParams) and a UE at
+    `ue_position` [3], or None for an omni TRxP (no boresight)."""
+    if gnb.boresight_deg is None:
+        return None
+    d = np.asarray(ue_position, np.float64) - np.asarray(gnb.position, np.float64)
+    return GnbSector(end, float(gnb.boresight_deg), float(gnb.downtilt_deg),
+                     float(np.degrees(np.arctan2(d[1], d[0]))),
+                     float(90.0 + np.degrees(np.arctan2(-d[2], np.hypot(d[0], d[1])))))
+
+
+def sector_rotation(boresight_deg: float, downtilt_deg: float) -> np.ndarray:
+    """R [3, 3] from a sector array's local coordinates to the global ones:
+    TR 38.901 eq. 7.1-4 with alpha the boresight, beta the downtilt, gamma 0
+    (a local direction v is R @ v globally)."""
+    a, b = np.deg2rad(boresight_deg), np.deg2rad(downtilt_deg)
+    rz = np.array([[np.cos(a), -np.sin(a), 0.0], [np.sin(a), np.cos(a), 0.0], [0.0, 0.0, 1.0]])
+    ry = np.array([[np.cos(b), 0.0, np.sin(b)], [0.0, 1.0, 0.0], [-np.sin(b), 0.0, np.cos(b)]])
+    return rz @ ry
+
+
+def sector_pattern_db(zen_deg: np.ndarray, az_deg: np.ndarray) -> np.ndarray:
+    """TR 38.901 Table 7.3-1 element gain (dB, its 8 dBi maximum left out)
+    at local zenith and azimuth angles (deg, azimuth in [-180, 180]):
+    3 dB beamwidths of 65 deg, 30 dB front-to-back and side-lobe floors."""
+    a_v = -np.minimum(12.0 * ((zen_deg - 90.0) / 65.0) ** 2, 30.0)
+    a_h = -np.minimum(12.0 * (az_deg / 65.0) ** 2, 30.0)
+    return -np.minimum(-(a_v + a_h), 30.0)
+
+
+def translate_angles(angles_deg: np.ndarray, cluster_deg: np.ndarray, powers: np.ndarray,
+                     desired_deg: float) -> np.ndarray:
+    """TR 38.901 §7.7.5.1 without spread scaling: the rays' angles moved by
+    the desired mean less the model's, the cluster-power-weighted circular
+    mean of the table's cluster angles."""
+    mean = np.degrees(np.angle(np.sum(powers * np.exp(1j * np.deg2rad(cluster_deg)))))
+    return angles_deg - mean + desired_deg
+
+
+def _sector_end(sector: GnbSector, table: np.ndarray, powers: np.ndarray, zen: np.ndarray,
+                az: np.ndarray, positions: np.ndarray) -> tuple:
+    """(field gain [R], unit vectors [R, 3], element positions [n, 3]) of a
+    sector's gNB end: its rays' angles translated towards the UE, the
+    element pattern at their local angles, its elements turned with it."""
+    col_az, col_zen = (2, 4) if sector.end == "tx" else (3, 5)
+    zen = translate_angles(zen, table[:, col_zen], powers, sector.zenith_deg)
+    az = translate_angles(az, table[:, col_az], powers, sector.azimuth_deg)
+    rot = sector_rotation(sector.boresight_deg, sector.downtilt_deg)
+    d = _unit_vec(zen, az)
+    local = d @ rot  # each row R^T d
+    gain_db = sector_pattern_db(np.degrees(np.arccos(np.clip(local[:, 2], -1.0, 1.0))),
+                                np.degrees(np.arctan2(local[:, 1], local[:, 0])))
+    return 10.0 ** (gain_db / 20.0), d, positions @ rot.T
+
+
 def _unit_vec(zen_deg, az_deg):
     th = np.deg2rad(zen_deg)
     ph = np.deg2rad(az_deg)
@@ -189,8 +265,17 @@ def build_cdl_link(
     rx_slant_deg: float = 45.0,
     tx_pol_pairs: bool = True,
     rx_pol_pairs: bool = True,
+    sector: GnbSector | None = None,
 ) -> CDLLink:
     """Generate per-ray channel constants per TR 38.901 §7.7.1 steps 1-4.
+
+    `sector` (gnb_sector) makes the gNB end (tx or rx, as it says) a
+    sector's: each ray's field at that end, [cos zeta, sin zeta], is scaled
+    by the element pattern's 10^(A/20) at the ray's local angles, the end's
+    elements are turned by the sector's rotation, and the end's departure or
+    arrival angles are translated to the link's geometric direction before
+    its array phases are formed. The draws, the delays and the Dopplers (from
+    the drawn angles) are those of the omni link; None draws it as before.
 
     Every ray of a cluster carries the cluster's delay exactly (the same
     float64 value; only angles, coupling, phases and Doppler differ between
@@ -283,14 +368,21 @@ def build_cdl_link(
                                     + m_pp[:, None, None] * f_tx[None, None, :, 1])
     )  # [R, n_rx, n_tx]
 
-    # array phase factors
     d_tx = _unit_vec(zod, aod)  # departure unit vectors [R, 3]
     d_rx = _unit_vec(zoa, aoa)
-    a_tx = np.exp(2j * np.pi * (tx_positions @ d_tx.T) / lam)  # [n_tx, R]
-    a_rx = np.exp(2j * np.pi * (rx_positions @ d_rx.T) / lam)  # [n_rx, R]
-
     nu = (d_rx @ vel) / lam  # Doppler per ray [R]
     amp = np.sqrt(p)
+    if sector is not None:
+        tracing.count("antenna.sector_links")
+        if sector.end == "tx":
+            gain, d_tx, tx_positions = _sector_end(sector, table, powers, zod, aod, tx_positions)
+        else:
+            gain, d_rx, rx_positions = _sector_end(sector, table, powers, zoa, aoa, rx_positions)
+        amp = amp * gain
+
+    # array phase factors
+    a_tx = np.exp(2j * np.pi * (tx_positions @ d_tx.T) / lam)  # [n_tx, R]
+    a_rx = np.exp(2j * np.pi * (rx_positions @ d_rx.T) / lam)  # [n_rx, R]
     coeff = (
         amp[None, None, :]
         * np.transpose(pol, (1, 2, 0))

@@ -38,6 +38,10 @@ budget), as in the reference. What differs in form:
   with the slot loop's results bit for bit.
 - `mesh=` computes the sensing RDM sharded over the mesh's `mesh_time_axis`
   (parallel/time_blocks.py).
+- A sector's TRxP (config/params.py `SectorGNBParams`) draws its serving
+  links with its element pattern, its turned array and its angles translated
+  towards each UE at the gNB end (ops/cdl.py `gnb_sector`); an omni TRxP's
+  links are drawn as the reference draws them.
 
 Spans (utils/tracing.py): ``build.engine`` around the constructor (with
 ``build.engine.links``, the CDL draws, and ``build.engine.rays``, the links in
@@ -66,7 +70,13 @@ from isac_tpu_torch.mac.pdu import build_mac_pdu, parse_mac_pdu
 from isac_tpu_torch.mac.scheduler import Grant, Scheduler
 from isac_tpu_torch.metrics.kpi import CellMetrics, peak_spectral_efficiency
 from isac_tpu_torch.metrics.logger import MacPcapWriter, SchedulingLogger
-from isac_tpu_torch.ops.cdl import SlotChannel, build_cdl_link, stack_links, subcarrier_freqs
+from isac_tpu_torch.ops.cdl import (
+    SlotChannel,
+    build_cdl_link,
+    gnb_sector,
+    stack_links,
+    subcarrier_freqs,
+)
 from isac_tpu_torch.ops.csi import (
     SINR_TO_CQI_UL,
     cqi_select,
@@ -283,6 +293,7 @@ class CellSimulator:
                         profiles[u], cell.cdl.delay_spread_ns, gnb.dl_carrier_freq,
                         self.gnb_elems, self.ue_elems, ue_velocity=ue_speed,
                         seed=cell.cdl.seed * 1000 + u,
+                        sector=gnb_sector(gnb, cell.ue_positions[u], "tx"),
                     )
                     for u in range(self.n_ues)
                 ]
@@ -291,6 +302,7 @@ class CellSimulator:
                         profiles[u], cell.cdl.delay_spread_ns, gnb.ul_carrier_freq,
                         self.ue_elems, self.gnb_elems, ue_velocity=ue_speed,
                         seed=cell.cdl.seed * 1000 + 500 + u,
+                        sector=gnb_sector(gnb, cell.ue_positions[u], "rx"),
                     )
                     for u in range(self.n_ues)
                 ]

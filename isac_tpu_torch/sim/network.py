@@ -56,7 +56,17 @@ response's device work, the fold and the contraction (the slot's time
 phases are built just before it, counted as ``rays.device_time_phases``).
 Each ``network.slot`` counts ``network.bank_bytes`` once: the runner's
 ``bank_bytes``, the most bytes the banks have held on the device at once
-since they were built (constants and cached slot responses).
+since they were built (constants and cached slot responses). A bank's build
+draws its links inside the runner's stage ``network.bank_draws`` (host,
+attribute ``links``; its seconds in ``stage_s["bank_draws"]``), and a DL
+cross term's contraction runs inside ``network.dl_term`` (device; attributes
+``sources``, ``ues``, ``subcarriers``, ``rx``, ``tx``).
+
+Sectors: a link whose gNB is a sector's TRxP (`SectorGNBParams`) is drawn
+with that gNB's element pattern, turned array and angles translated towards
+the link's UE (ops/cdl.py `gnb_sector`), in the banks as in the engines: the
+source's on a DL bank link, the destination's on an FDD UL bank link; the
+TDD uplink reads the DL bank links by reciprocity.
 """
 
 from __future__ import annotations
@@ -69,7 +79,7 @@ import torch
 
 from isac_tpu_torch.config.params import SimulationParameters, assign_cell_parameters
 from isac_tpu_torch.metrics.kpi import ecdf
-from isac_tpu_torch.ops.cdl import SlotChannel, build_cdl_link, stack_links
+from isac_tpu_torch.ops.cdl import SlotChannel, build_cdl_link, gnb_sector, stack_links
 from isac_tpu_torch.ops.pathloss import pathloss as pathloss_db
 from isac_tpu_torch.parallel.cells import network_cross_rx
 from isac_tpu_torch.sim.cell import CellSimulator, _readback
@@ -128,6 +138,12 @@ def resolve_los_cross(cells: list, sim: SimulationParameters):
         return out, cross_los
 
 
+def _draws(stage, links: int):
+    """The runner's ``bank_draws`` stage around a bank's link draws, or
+    nothing for a bank built outside a runner."""
+    return contextlib.nullcontext() if stage is None else stage("bank_draws", links=links)
+
+
 class _RayBank(SlotChannel):
     """Every (source, UE) link of a destination as one batch of links in the
     cluster form (ops/cdl.py SlotChannel), on the destination engine's device
@@ -168,44 +184,43 @@ class _UlCrossBank(_RayBank):
     count carry active=False."""
 
     def __init__(self, dst_sim: CellSimulator, sims: list, dst_idx: int,
-                 cross_los: dict, seed: int = 0):
+                 cross_los: dict, seed: int = 0, stage=None):
         dst = dst_sim.cell
         n_ues = max(s.n_ues for s in sims)
         self.n_cells = len(sims)
         self.n_ues = n_ues
-        links, pl_rows, active = [], [], []
+        los_rows, pos_rows, active = [], [], []
         for s, src_sim in enumerate(sims):
             src = src_sim.cell
-            on = (
+            active.append(
                 s != dst_idx
                 and src.gnb.ul_carrier_freq == dst.gnb.ul_carrier_freq
                 and src_sim.n_sc == dst_sim.n_sc
                 and src_sim.n_ues == n_ues
                 and src_sim.n_ue_ants == sims[0].n_ue_ants
             )
-            active.append(on)
             # LoS of (gNB_d, UE_{s,u}) = cross_los[(s, d)]: the blockage test
             # is direction-symmetric (openStreetMapCity.m:67-94)
             los = cross_los.get((s, dst_idx))
-            if los is None or len(los) != n_ues:
-                los = np.zeros(n_ues, bool)
-            ue_speed = src.cdl.max_doppler_shift_hz * src_sim.carrier.wavelength
-            pos = (src.ue_positions if src_sim.n_ues == n_ues
-                   else np.zeros((n_ues, 3)))
-            for u in range(n_ues):
-                links.append(
-                    build_cdl_link(
-                        src.cdl.delay_profile if los[u] else "CDL-A",
-                        src.cdl.delay_spread_ns, dst.gnb.ul_carrier_freq,
-                        src_sim.ue_elems, dst_sim.gnb_elems,
-                        ue_velocity=ue_speed,
-                        seed=seed * 7919 + s * 100003 + u + 500009,
-                    )
+            los_rows.append(np.zeros(n_ues, bool) if los is None or len(los) != n_ues else los)
+            pos_rows.append(src.ue_positions if src_sim.n_ues == n_ues
+                            else np.zeros((n_ues, 3)))
+        with _draws(stage, len(sims) * n_ues):
+            links = [
+                build_cdl_link(
+                    src_sim.cell.cdl.delay_profile if los[u] else "CDL-A",
+                    src_sim.cell.cdl.delay_spread_ns, dst.gnb.ul_carrier_freq,
+                    src_sim.ue_elems, dst_sim.gnb_elems,
+                    ue_velocity=src_sim.cell.cdl.max_doppler_shift_hz * src_sim.carrier.wavelength,
+                    seed=seed * 7919 + s * 100003 + u + 500009,
+                    sector=gnb_sector(dst.gnb, pos[u], "rx"),
                 )
-            pl_rows.append(pathloss_db(
-                dst.pathloss.model, np.asarray(dst.gnb.position), pos,
-                dst.gnb.ul_carrier_freq, los,
-            ))
+                for s, (src_sim, los, pos) in enumerate(zip(sims, los_rows, pos_rows))
+                for u in range(n_ues)
+            ]
+        pl_rows = [pathloss_db(dst.pathloss.model, np.asarray(dst.gnb.position), pos,
+                               dst.gnb.ul_carrier_freq, los)
+                   for los, pos in zip(los_rows, pos_rows)]
         self._stack(links, dst_sim)
         self.active = np.asarray(active, bool)
         self.pl = np.stack(pl_rows)  # [S, U] dB at the UL carrier
@@ -218,40 +233,40 @@ class _CrossBank(_RayBank):
     that the shapes stay rectangular)."""
 
     def __init__(self, dst_sim: CellSimulator, sims: list, dst_idx: int,
-                 cross_los: dict, seed: int = 0):
+                 cross_los: dict, seed: int = 0, stage=None):
         dst = dst_sim.cell
         n_ues = dst.ue_positions.shape[0]
         self.n_cells = len(sims)
         self.n_ues = n_ues
         self.dst_idx = dst_idx
-        links, amp_rows, pl_rows, active = [], [], [], []
+        amp_rows, pl_rows = [], []
         scs_hz = dst.gnb.scs_khz * 1e3
 
         def teq(nf_db, t_k):
             return t_k + 290.0 * (db2pow(nf_db) - 1.0)
 
         n_re = BOLTZMANN * teq(dst.ue.noise_figure_db, dst.ue.temperature_k) * scs_hz
-        for s, src_sim in enumerate(sims):
-            src = src_sim.cell
-            on = (
-                s != dst_idx
-                and src.gnb.dl_carrier_freq == dst.gnb.dl_carrier_freq
-                and src_sim.n_sc == dst_sim.n_sc
-            )
-            active.append(on)
-            los = cross_los.get((dst_idx, s))
-            if los is None:
-                los = np.zeros(n_ues, bool)  # no city: cross links NLoS
-            ue_speed = dst.cdl.max_doppler_shift_hz * src_sim.carrier.wavelength
-            for u in range(n_ues):
-                links.append(
-                    build_cdl_link(
-                        dst.cdl.delay_profile if los[u] else "CDL-A",
-                        dst.cdl.delay_spread_ns, src.gnb.dl_carrier_freq,
-                        src_sim.gnb_elems, dst_sim.ue_elems,
-                        ue_velocity=ue_speed, seed=seed * 7919 + s * 100003 + u,
-                    )
+        active = [s != dst_idx
+                  and src_sim.cell.gnb.dl_carrier_freq == dst.gnb.dl_carrier_freq
+                  and src_sim.n_sc == dst_sim.n_sc
+                  for s, src_sim in enumerate(sims)]
+        # no city: cross links NLoS
+        los_rows = [cross_los.get((dst_idx, s), np.zeros(n_ues, bool)) for s in range(len(sims))]
+        with _draws(stage, len(sims) * n_ues):
+            links = [
+                build_cdl_link(
+                    dst.cdl.delay_profile if los[u] else "CDL-A",
+                    dst.cdl.delay_spread_ns, src_sim.cell.gnb.dl_carrier_freq,
+                    src_sim.gnb_elems, dst_sim.ue_elems,
+                    ue_velocity=dst.cdl.max_doppler_shift_hz * src_sim.carrier.wavelength,
+                    seed=seed * 7919 + s * 100003 + u,
+                    sector=gnb_sector(src_sim.cell.gnb, dst.ue_positions[u], "tx"),
                 )
+                for s, (src_sim, los) in enumerate(zip(sims, los_rows))
+                for u in range(n_ues)
+            ]
+        for src_sim, los, on in zip(sims, los_rows, active):
+            src = src_sim.cell
             # source tx power per RE through the source->UE pathloss, over the
             # DESTINATION receiver's noise floor (the serving amp_dl's units)
             pl = pathloss_db(
@@ -278,7 +293,8 @@ class SyncNetworkRunner:
     stage_s: host seconds spent in each stage (the names of the
     ``network.*`` spans) since construction, whether or not tracing records;
     ``banks`` (bank builds and slot responses) is also inside ``dl_cross`` /
-    ``ul_cross``."""
+    ``ul_cross``, and ``bank_draws`` (a bank build's link draws) inside
+    ``banks``."""
 
     def __init__(self, cells: list, seed: int = 0, cross_los: dict | None = None,
                  mesh=None, ul_interference: bool = True, device=None, **cell_kwargs):
@@ -302,9 +318,9 @@ class SyncNetworkRunner:
         self.bank_bytes = 0  # the most bytes the banks held on the device at once
 
     @contextlib.contextmanager
-    def _stage(self, name: str):
+    def _stage(self, name: str, **attrs):
         """The ``network.<name>`` span, its host time added to stage_s."""
-        with tracing.span(f"network.{name}", timed=True) as sp:
+        with tracing.span(f"network.{name}", timed=True, **attrs) as sp:
             yield
         self.stage_s[name] = self.stage_s.get(name, 0.0) + sp.seconds
 
@@ -314,7 +330,7 @@ class SyncNetworkRunner:
         with self._stage("banks"):
             self.banks = [
                 _CrossBank(sim, self.sims, d, self.cross_los,
-                           seed=self.seed * 131 + d * 17)
+                           seed=self.seed * 131 + d * 17, stage=self._stage)
                 for d, sim in enumerate(self.sims)
             ]
         self._note_bank_bytes()
@@ -358,7 +374,10 @@ class SyncNetworkRunner:
         with self._stage("banks"):
             h = bank.h(slot)
         self._note_bank_bytes()
-        return torch.einsum("xtsk,xuskat,xu->uask", tx, h, amp.to(torch.complex64))
+        n_rx, n_tx = h.shape[-2:]
+        with tracing.span("network.dl_term", device=True, sources=h.shape[0], ues=h.shape[1],
+                          subcarriers=h.shape[3], rx=n_rx, tx=n_tx):
+            return torch.einsum("xtsk,xuskat,xu->uask", tx, h, amp.to(torch.complex64))
 
     def _dl_ext_mesh(self, slot: int, states: list) -> torch.Tensor:
         """Every destination's DL cross term [C_dst, U, n_rx, 14, K] in one
@@ -377,7 +396,7 @@ class SyncNetworkRunner:
             with self._stage("banks"):
                 self.ul_banks = [
                     _UlCrossBank(sim, self.sims, d, self.cross_los,
-                                 seed=self.seed * 131 + d * 17)
+                                 seed=self.seed * 131 + d * 17, stage=self._stage)
                     for d, sim in enumerate(self.sims)
                 ]
 

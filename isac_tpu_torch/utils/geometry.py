@@ -47,11 +47,15 @@ def poisson_points_2d(
     density_or_count,
     height: float = 0.0,
     exact_count: bool = True,
+    wedge: tuple | None = None,
 ) -> np.ndarray:
     """Poisson point drop inside a hexagon around `center`, rejection-sampled.
 
     Mirrors +parameters/+user/poisson2D.m generatePoissonPoints: a Poisson (or
     fixed) count of points uniformly placed inside the hexagonal cell.
+    `wedge` = (boresight_deg, width_deg) keeps only the points whose azimuth
+    from `center` lies within width / 2 of the boresight (a sector's drop);
+    None keeps the whole hexagon, with the same draws as before.
     Returns [N, 3] positions with the given height.
     """
     if exact_count:
@@ -64,6 +68,10 @@ def poisson_points_2d(
     while got < n:
         cand = rng.uniform(-radius, radius, size=(max(8, 2 * (n - got)), 2)) + center[None, :]
         ok = point_in_hexagon(cand, center, radius)
+        if wedge is not None:
+            rel = cand - center[None, :]
+            off = (np.degrees(np.arctan2(rel[:, 1], rel[:, 0])) - wedge[0] + 180.0) % 360.0 - 180.0
+            ok &= np.abs(off) <= wedge[1] / 2.0
         take = cand[ok][: n - got]
         pts[got : got + take.shape[0]] = take
         got += take.shape[0]

@@ -172,10 +172,15 @@ def test_runner_stage_spans_feed_stage_s(clean):
     assert [r.attrs["slot"] for r in slots] == list(range(5))
     slot_ids = {r.id for r in slots}
     stages = [r for r in recs if r.name.startswith("network.")
-              and r.name not in ("network.slot", "network.bank_h")]
+              and r.name not in ("network.slot", "network.bank_h", "network.dl_term")]
     build = stages[0]  # the banks' build before the first slot
     assert build.name == "network.banks" and build.parent is None
+    # each bank's link draws: a stage of their own inside the build
+    draws = [r for r in stages if r.name == "network.bank_draws"]
+    assert [(r.parent, r.attrs) for r in draws] == [(build.id, {"links": 2})] * 2
     for r in stages[1:]:
+        if r.name == "network.bank_draws":
+            continue
         parent = by_id[r.parent]
         if r.name == "network.banks":  # a slot response, inside a cross stage
             assert parent.name in ("network.dl_cross", "network.ul_cross")
@@ -186,6 +191,8 @@ def test_runner_stage_spans_feed_stage_s(clean):
                                         "network.ul_cross", "network.ul_rx", "network.epilogue"}
     assert all(by_id[r.parent].name == "network.banks"
                for r in recs if r.name == "network.bank_h")
+    terms = [r for r in recs if r.name == "network.dl_term"]
+    assert terms and all(by_id[r.parent].name == "network.dl_cross" for r in terms)
     for key, seconds in runner.stage_s.items():
         spans_s = sum(r.t1 - r.t0 for r in stages if r.name == f"network.{key}") / 1e9
         assert spans_s == pytest.approx(seconds, rel=1e-3), key
